@@ -11,8 +11,9 @@ Phases (any failed check exits nonzero and prints no result):
 
 1. build the RVQ kernels (``nat_tpu_torch/csrc/rvq_argmin.cu``) with nvcc;
 2. K1: hold the argmin kernel against the plain PyTorch chain at the main
-   path's shapes (N=4, K=4096, D=512; M = 81, 648 and a ragged 200; a
-   ragged K=1000) and time kernel, plain version and a library yardstick;
+   path's shapes (N=4, K=4096, D=512; M = 81, 648, 88 and a ragged 200; a
+   ragged K=1000; M=17 with K=4097; D=500) and time kernel, plain version
+   and a library yardstick;
 3. K2: the sampling kernel against the plain chain fed the uniforms the
    kernel's own Philox draws (M = 81 and 200, τ = 0.5), seed
    reproducibility and sensitivity, τ = 1e-4 against argmin, and times;
@@ -37,6 +38,12 @@ Phases (any failed check exits nonzero and prints no result):
    twice gives identical frames;
 9. report times, rates and the device's busy share (torch.profiler), and
    the kernel line, each beside the card's name and power limit.
+
+Last, it profiles one K1 call in a process of its own (so no timing sees
+the profiler's after-effect), which must launch at most N + 1 = 5
+kernels.  ``python3 chip_smoke.py --kernels`` runs phases 1-4,
+times K1 under each row tile the kernel takes (``[plan]`` lines), profiles
+one K1 call and stops without a result.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
 or of the JAX package.
@@ -118,6 +125,84 @@ def wall_ms(torch, fn, iters: int = 20) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def profile_call(torch, fn) -> list:
+    """Every device activity of one ``fn()`` under torch.profiler, in
+    device order: ``[(name, start_us, duration_us)]``.  The caller warms
+    ``fn`` up and leaves the card idle before, so the window holds this
+    call's kernels only."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA)
+    return [(name, start, end - start) for start, end, name in spans]
+
+
+def k1_call_split(torch, label: str) -> int:
+    """Profile one K1 call at the main path's shape (M=81, K=4096, D=512,
+    N=4, codebook cold) and print each device activity, its time and the
+    idle gaps between them.  Returns the number of activities."""
+    from nat_tpu_torch.ops import rvq_kernel
+
+    rng = np.random.default_rng(77)
+    cb = torch.from_numpy(rng.standard_normal((4, 4096, 512)).astype(
+        np.float32)).cuda()
+    x = torch.from_numpy(rng.standard_normal((81, 512)).astype(
+        np.float32)).cuda()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        rvq_kernel.rvq_encode_cuda(cb, x)
+    flush.zero_()
+    spans = profile_call(torch, lambda: rvq_kernel.rvq_encode_cuda(cb, x))
+    check(spans, "the profiler recorded no device activity for one K1 call")
+    t0 = spans[0][1]
+    busy = sum(dur for _, _, dur in spans)
+    gaps = [spans[i + 1][1] - (spans[i][1] + spans[i][2])
+            for i in range(len(spans) - 1)]
+    total = spans[-1][1] + spans[-1][2] - t0
+    print(f"[kernel] profile of one K1 call (M=81 K=4096 D=512 N=4, cold "
+          f"codebook): {len(spans)} device activities, {busy:.2f} us busy, "
+          f"{sum(gaps):.2f} us of gaps, {total:.2f} us first start to last "
+          f"end [{label}]")
+    for i, (name, start, dur) in enumerate(spans):
+        gap = f", then {gaps[i]:.2f} us idle" if i < len(gaps) else ""
+        print(f"[kernel]   +{start - t0:8.2f} us {dur:8.2f} us  "
+              f"{name[:70]}{gap}")
+    del flush
+    return len(spans)
+
+
+def check_one_call_launches(label: str) -> None:
+    """Profile one K1 call in a process of its own, which must launch at
+    most N + 1 = 5 kernels.  There the profiler session is the process's
+    first (after several in one process it recorded no device activity
+    for a single call on the H100), and no timing of this run sees its
+    after-effect."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.one_call_profile(sys.argv[1]))", label],
+        capture_output=True, text=True, cwd=str(ROOT), timeout=600,
+        stdin=subprocess.DEVNULL)
+    print(proc.stdout, end="")
+    check(proc.returncode == 0, f"one-call profile rc {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+
+
+def one_call_profile(label: str) -> int:
+    import torch
+
+    launched = k1_call_split(torch, label)
+    check(launched <= 4 + 1, f"one K1 call launched {launched} kernels, more "
+          f"than N + 1 = 5")
+    return 0
+
+
 def write_wav(path: Path, seconds: float, seed: int) -> None:
     from nat_tpu_torch.io.audio import write_wav as _write
 
@@ -129,6 +214,29 @@ def write_wav(path: Path, seconds: float, seed: int) -> None:
     _write(str(path), audio.astype(np.float32), SR)
 
 
+def ptxas_report(log: str) -> dict:
+    """Registers, static shared memory and spills per kernel from
+    ``nvcc -Xptxas -v`` output, keyed by a readable kernel name."""
+    import re
+
+    report, name = {}, None
+    for line in log.splitlines():
+        props = re.search(r"Function properties for (\S+)", line)
+        if props:
+            mangled = props.group(1)
+            base = re.findall(r"rvq_[a-z_]*kernel", mangled)
+            name = base[-1] if base else mangled
+            args = re.search(r"ILb([01])EE", mangled)
+            if args:
+                name += "<sample>" if args.group(1) == "1" else "<argmin>"
+            report[name] = {}
+        elif name and "spill" in line:
+            report[name]["spills"] = line.strip()
+        elif name and "registers" in line:
+            report[name]["usage"] = line.split(":", 1)[-1].strip()
+    return report
+
+
 def phase_build(label: str):
     from nat_tpu_torch.ops import cuda_build, rvq_kernel
 
@@ -136,9 +244,13 @@ def phase_build(label: str):
     path, log = cuda_build.build(rvq_kernel.SOURCE)
     print(f"[build] {rvq_kernel.SOURCE} -> {path.relative_to(ROOT)} in "
           f"{time.time() - t0:.2f} s [{label}]")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+    report = ptxas_report(log)
+    for name, info in sorted(report.items()):
+        print(f"[build]   {name}: {info.get('usage', '?')}; "
+              f"{info.get('spills', '?')}")
+    for name, info in report.items():
+        check("0 bytes spill stores, 0 bytes spill loads"
+              in info.get("spills", ""), f"{name} spills: {info}")
 
 
 def phase_kernel(torch, label: str) -> dict:
@@ -151,9 +263,14 @@ def phase_kernel(torch, label: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     rng = np.random.default_rng(1234)
-    n, d = 4, 512
+    n = 4
     result = {}
-    for m, k in ((81, 4096), (648, 4096), (200, 4096), (81, 1000)):
+    # The main path's shape, a kernel-phase batch, a ragged M, a ragged K,
+    # K3's M, a ragged M with a ragged K, and a depth that is not a
+    # multiple of the 32-deep slice.
+    for m, k, d in ((81, 4096, 512), (648, 4096, 512), (200, 4096, 512),
+                    (81, 1000, 512), (88, 4096, 512), (17, 4097, 512),
+                    (81, 4096, 500)):
         cb = torch.from_numpy(rng.standard_normal((n, k, d)).astype(
             np.float32)).cuda()
         x = torch.from_numpy(rng.standard_normal((m, d)).astype(
@@ -162,19 +279,19 @@ def phase_kernel(torch, label: str) -> dict:
         ref_codes, ref_err, ref_qsum = plain.rvq_chain(cb, x)
         torch.cuda.synchronize()
         codes = codes.long()
+        where = f"M={m}, K={k}, D={d}"
         check(torch.equal(codes[0], ref_codes[0]),
-              f"layer-0 codes differ at M={m}, K={k}")
+              f"layer-0 codes differ at {where}")
         mismatch = (codes != ref_codes).float().mean().item()
         check(mismatch <= TIE_BUDGET,
-              f"{mismatch:.4f} of codes differ at M={m}, K={k}")
+              f"{mismatch:.4f} of codes differ at {where}")
         agree = (codes == ref_codes).all(dim=0)
         qsum_err = (qsum[agree] - ref_qsum[agree]).abs().max().item()
         err_rel = ((err[:, agree] - ref_err[:, agree]).abs()
                    / ref_err[:, agree].abs().clamp_min(1.0)).max().item()
-        check(qsum_err <= QSUM_ATOL, f"qsum differs by {qsum_err} "
-              f"(M={m}, K={k})")
+        check(qsum_err <= QSUM_ATOL, f"qsum differs by {qsum_err} ({where})")
         check(err_rel <= ERR_RTOL, f"err differs by {err_rel} relative "
-              f"(M={m}, K={k})")
+              f"({where})")
 
         def library_chain():
             # Yardstick only (never called by the port): per layer
@@ -196,18 +313,93 @@ def phase_kernel(torch, label: str) -> dict:
         bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
         bound_by = ("operations" if flops / PEAK_FP32_FLOPS
                     >= nbytes / PEAK_HBM_BYTES else "bytes")
-        print(f"[kernel] M={m} K={k}: mismatch {mismatch:.5f}, qsum max abs "
+        plan = rvq_kernel.launch_plan(m, k, *rvq_kernel.resident_blocks(
+            0, False))
+        print(f"[kernel] M={m} K={k} D={d}: plan row tile {plan.row_tile} x "
+              f"{plan.row_tiles}, {plan.row_tiles * plan.code_chunks} items, "
+              f"{plan.grid_blocks} blocks, {plan.smem_bytes} B shared; mismatch "
+              f"{mismatch:.5f}, qsum max abs "
               f"err {qsum_err:.3g}, err max rel {err_rel:.3g}; kernel "
               f"{ms:.4f} ms (device; {call_ms:.4f} ms per synchronized "
               f"call on the host clock), plain {plain_ms:.4f} ms, library chain "
               f"(cdist+argmin+index, yardstick) {library_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}) [{label}]")
-        if (m, k) == (81, 4096):
+        if (m, k, d) == (81, 4096, 512):
+            check_plan_independence(torch, cb, x, None, label)
             result = dict(max_abs_err=qsum_err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=library_ms)
     del flush
     return result
+
+
+def check_plan_independence(torch, cb, x, temperature, label: str) -> None:
+    """The same rows give the same codes, errors and sums bit for bit under
+    each row tile, and as the first 17 rows of a call of their own (one
+    tile of 32 where 81 rows take one of 96)."""
+    from nat_tpu_torch.ops import rvq_kernel
+
+    m, k = x.shape[0], cb.shape[1]
+    sms, per_sm = rvq_kernel.resident_blocks(0, temperature is not None)
+    outs = [rvq_kernel.rvq_encode_cuda(cb, x, temperature, 5,
+                                       rvq_kernel.plan_with_tile(
+                                           m, k, tile, sms * blocks))
+            for tile, blocks in zip(rvq_kernel.ROW_TILES, per_sm)]
+    head = rvq_kernel.rvq_encode_cuda(cb, x[:17].contiguous(), temperature, 5)
+    tiles = (rvq_kernel.launch_plan(17, k, sms, per_sm).row_tile,
+             rvq_kernel.launch_plan(m, k, sms, per_sm).row_tile)
+    mode = "K1" if temperature is None else f"K2 tau={temperature}"
+    check(all(torch.equal(a, b) for other in outs[1:]
+              for a, b in zip(outs[0], other)),
+          f"{mode}: results depend on the row tile")
+    check(all(torch.equal(a, b) for a, b in zip(
+        head, (outs[0][0][:, :17], outs[0][1][:, :17], outs[0][2][:17]))),
+        f"{mode}: 17 rows alone differ from the same rows in a call of {m}")
+    print(f"[kernel] {mode} M={m} K={k}: codes, err and qsum bit-identical "
+          f"under row tiles {rvq_kernel.ROW_TILES} (blocks an SM holds: "
+          f"{per_sm}) and for the first 17 rows alone (tile {tiles[0]}, "
+          f"against {tiles[1]}) [{label}]")
+
+
+def phase_plans(torch, label: str) -> None:
+    """K1's device time at the main path's shapes under each row tile the
+    kernel takes, beside ``launch_plan``'s choice: the measurement the
+    plan's rule rests on."""
+    from nat_tpu_torch.ops import rvq_kernel
+
+    sms, per_sm = rvq_kernel.resident_blocks(0, False)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(99)
+    n, d = 4, 512
+    for m, k in ((81, 4096), (88, 4096), (648, 4096), (81, 1000)):
+        cb = torch.from_numpy(rng.standard_normal((n, k, d)).astype(
+            np.float32)).cuda()
+        x = torch.from_numpy(rng.standard_normal((m, d)).astype(
+            np.float32)).cuda()
+        best = rvq_kernel.launch_plan(m, k, sms, per_sm)
+        times = []
+        for tile, blocks in zip(rvq_kernel.ROW_TILES, per_sm):
+            plan = rvq_kernel.plan_with_tile(m, k, tile, sms * blocks)
+            ms = device_ms(torch, lambda: rvq_kernel.rvq_encode_cuda(
+                cb, x, plan=plan), flush=flush)
+            mark = "*" if plan == best else ""
+            times.append(f"{tile}x{plan.row_tiles}{mark} {ms:.4f}")
+        print(f"[plan] K1 M={m} K={k} D={d}, device ms by row tile x tiles "
+              f"(* = launch_plan's): {', '.join(times)} [{label}]")
+    # What a call costs whatever its depth: one 32-deep slice a layer at
+    # the main path's M and K, and a single row against a single code.
+    fixed = []
+    for m, k, d in ((81, 4096, 32), (1, 1, 3)):
+        cb = torch.from_numpy(rng.standard_normal((n, k, d)).astype(
+            np.float32)).cuda()
+        x = torch.from_numpy(rng.standard_normal((m, d)).astype(
+            np.float32)).cuda()
+        ms = device_ms(torch, lambda: rvq_kernel.rvq_encode_cuda(cb, x),
+                       flush=flush)
+        fixed.append(f"M={m} K={k} D={d} {ms:.4f} ms")
+    print(f"[plan] K1 with almost no depth or width (launch, init, barriers "
+          f"and updates of 4 layers): {', '.join(fixed)} [{label}]")
+    del flush
 
 
 def reset_counts() -> None:
@@ -316,6 +508,7 @@ def phase_k2(torch, label: str) -> dict:
               f"(cdist+Gumbel+argmin+index, yardstick) {library_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}) [{label}]")
         if m == 81:
+            check_plan_independence(torch, cb, x, tau, label)
             result = dict(max_abs_err=qsum_err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=library_ms)
@@ -388,10 +581,12 @@ def phase_k3(torch, label: str) -> dict:
                 ((q * w).sum() + losses["commitment_loss"]).backward()
             return fn
 
+        # A longer lead: autograd takes the host longer to queue than the
+        # default lead lasts.
         ms = device_ms(torch, fwd_bwd(rvq_kernel.rvq_encode_train),
-                       flush=flush)
+                       flush=flush, lead_cycles=20_000_000)
         plain_ms = device_ms(torch, fwd_bwd(plain.rvq_encode_ste),
-                             flush=flush)
+                             flush=flush, lead_cycles=20_000_000)
         # Forward as K1; the backward re-gathers q (N·M·D) and reads the
         # quantized gradient, and writes grad_x (M·D).
         bound_ms, bound_by = chain_bound(
@@ -908,12 +1103,21 @@ def main() -> int:
     k1 = phase_kernel(torch, label)
     k2 = phase_k2(torch, label)
     k3 = phase_k3(torch, label)
+    if sys.argv[1:] == ["--kernels"]:
+        # The kernel phases, the plan sweep and the profile, then stop: no
+        # result line.
+        phase_plans(torch, label)
+        check_one_call_launches(label)
+        print(f"[card] kernel phases passed in {time.time() - t_start:.0f} s "
+              f"[{label}]")
+        return 0
     with tempfile.TemporaryDirectory() as tmp:
         stats = phase_main_path(torch, Path(tmp), label)
         sampled = phase_stochastic(torch, Path(tmp), stats[70], label)
         phase_parity(torch, Path(tmp))
         trained = phase_train(torch, Path(tmp), label)
         phase_entry_points(torch, Path(tmp), stats[10]["frames"], label)
+    check_one_call_launches(label)
     print(f"[card] all phases passed in {time.time() - t_start:.0f} s "
           f"[{label}]")
 

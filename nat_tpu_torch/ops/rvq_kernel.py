@@ -3,14 +3,21 @@
 * **K1** (argmin) replaces ``nat_tpu/ops/rvq_pallas.py::_rvq_kernel`` in
   argmin mode; **K2** is the same kernel's stochastic mode
   (``rvq_pallas.py:73-89``).  Source and design notes:
-  ``csrc/rvq_argmin.cu``.  What bounds them on an H100 at the main path's
-  shapes (N=4, K=4096, D=512, M=81): 1.36 GFLOP of fp32 FMA work against
-  33.5 MB of codebook — fp32 operations, not memory.
+  ``csrc/rvq_argmin.cu``: one persistent cooperative launch per call, with
+  |c|² fused into the distance pass, a 4-stage ``cp.async`` ring of depth
+  slices and 8×4 outputs a thread.  ``cuda_build`` compiles it on the
+  first CUDA call, in 5-8 s on an H100 host.  What bounds them on an H100 at the main
+  path's shapes (N=4, K=4096, D=512, M=81): 1.36 GFLOP of fp32 FMA work
+  against 33.5 MB of codebook — fp32 operations, not memory.
 * **K3** replaces ``rvq_encode_pallas_train`` (``rvq_pallas.py:307-345``):
   :class:`RVQTrainEncode`, an autograd Function whose forward is K1 and
   whose backward is the reference's analytic straight-through gradient in
   torch ops (the reference's backward is jnp, not Pallas, too).
 
+:func:`launch_plan` cuts a call on the host (row tile, shared memory,
+grid) from M, K, the card's SM count and how many blocks an SM holds at
+once; the kernel checks it.  The ring depth (4 slices) and the code chunk
+(32) are fixed in the kernel, and no plan changes its arithmetic.
 The wrappers take the plain version (:mod:`nat_tpu_torch.quant.rvq`) only
 for tensors on the CPU.  A CUDA tensor launches the kernel or raises; there
 is no fallback.  Each kernel has a launch count (one per call on CUDA) so
@@ -22,7 +29,10 @@ counts one K1 launch).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import functools
+import math
+from dataclasses import dataclass
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -35,6 +45,121 @@ sample_launches = 0
 train_launches = 0
 _lib = None
 
+CODE_CHUNK = 32          # codes an item takes (fixed in the kernel)
+SLICE = 32               # depth of one pipeline stage
+STAGES = 4               # slices in flight (fixed in the kernel)
+CSQ_PARTS = 4            # partial sums of |c|² a code (fixed in the kernel)
+THREADS_PER_ROW = 4      # a block's threads for each row of its tile
+ROW_TILES = (32, 64, 96)  # 96 rows: 384 threads, up to 168 registers each
+ROW_TILE_MAX = ROW_TILES[-1]
+SMEM_LIMIT = 232_448     # shared memory one block may use on sm_90
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How one call of the chain kernel on ``x [m, d]`` against ``k`` codes
+    a layer is cut.  The kernel's items are (row tile × code chunk) pairs;
+    ``grid_blocks`` blocks of ``THREADS_PER_ROW × row_tile`` threads walk
+    them, one item at a time."""
+
+    m: int
+    k: int
+    row_tile: int
+    smem_bytes: int
+    grid_blocks: int
+
+    @property
+    def row_tiles(self) -> int:
+        return math.ceil(self.m / self.row_tile)
+
+    @property
+    def code_chunks(self) -> int:
+        return math.ceil(self.k / CODE_CHUNK)
+
+    def items(self) -> Iterator[Tuple[range, range]]:
+        """``(rows, codes)`` of each item in the kernel's order: item ``i``
+        takes row tile ``i % row_tiles`` and code chunk ``i // row_tiles``;
+        rows past ``m`` and codes past ``k`` are masked."""
+        for item in range(self.row_tiles * self.code_chunks):
+            r0 = (item % self.row_tiles) * self.row_tile
+            c0 = (item // self.row_tiles) * CODE_CHUNK
+            yield (range(r0, min(r0 + self.row_tile, self.m)),
+                   range(c0, min(c0 + CODE_CHUNK, self.k)))
+
+
+def smem_bytes(row_tile: int) -> int:
+    """Dynamic shared memory of one block: the ring of ``STAGES`` slices
+    (``row_tile`` residual rows and ``CODE_CHUNK`` codes, each ``SLICE``
+    floats padded by 4), the |c|² partial sums and K2's Gumbel noise for
+    the item (``row_tile`` rows of ``CODE_CHUNK`` floats padded by 1)."""
+    return 4 * (STAGES * (row_tile + CODE_CHUNK) * (SLICE + 4)
+                + CSQ_PARTS * CODE_CHUNK + row_tile * (CODE_CHUNK + 1))
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(m: int, k: int, sm_count: int,
+                blocks_per_sm: Tuple[int, ...]) -> LaunchPlan:
+    """The plan for ``m`` rows against ``k`` codes a layer on a card of
+    ``sm_count`` SMs, each holding ``blocks_per_sm[i]`` blocks of row tile
+    ``ROW_TILES[i]`` at once.  Of the tilings of ``m``, the plan takes the
+    one whose items need the fewest rounds over the SMs, then the one that
+    leaves fewest SMs idle, then the least padding, then the fewest tiles:
+    at K=4096, 81 and 88 rows are one tile of 96 (128 items); at K=1000,
+    81 rows are three tiles of 32 (96 items, where one tile would give
+    32)."""
+    if min(m, k, sm_count) < 1 or len(blocks_per_sm) != len(ROW_TILES):
+        raise ValueError(f"launch_plan: m={m}, k={k}, sm_count={sm_count} "
+                         f"must be >= 1 and blocks_per_sm={blocks_per_sm} "
+                         f"must give one count per row tile {ROW_TILES}")
+    chunks = math.ceil(k / CODE_CHUNK)
+
+    def cost(tiles: int):
+        tile = 32 * math.ceil(math.ceil(m / tiles) / 32)
+        items = tiles * chunks
+        return (math.ceil(items / sm_count), -min(items, sm_count),
+                tiles * tile, tiles), tile
+
+    _, tile = min(cost(t) for t in range(math.ceil(m / ROW_TILE_MAX),
+                                         math.ceil(m / 32) + 1))
+    return plan_with_tile(m, k, tile,
+                          sm_count * blocks_per_sm[ROW_TILES.index(tile)])
+
+
+def plan_with_tile(m: int, k: int, row_tile: int, resident: int) -> LaunchPlan:
+    """The plan for a given row tile (one of ``ROW_TILES``) on a card that
+    holds ``resident`` blocks of it at once.  The grid gives each item a
+    block, and each row a warp for its update, up to ``resident``: a
+    cooperative launch cannot take more, and idle blocks only slow the grid
+    barriers."""
+    if row_tile not in ROW_TILES or resident < 1:
+        raise ValueError(f"plan_with_tile: row tile {row_tile} (one of "
+                         f"{ROW_TILES}) with {resident} resident blocks")
+    tiles = math.ceil(m / row_tile)
+    wanted = max(tiles * math.ceil(k / CODE_CHUNK),
+                 math.ceil(m / (THREADS_PER_ROW * row_tile // 32)))
+    return LaunchPlan(m=m, k=k, row_tile=row_tile,
+                      smem_bytes=smem_bytes(row_tile),
+                      grid_blocks=min(wanted, resident))
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(index: int, stochastic: bool) -> Tuple[int, Tuple[int, ...]]:
+    """``(SM count, blocks of each row tile an SM holds at once)`` for the
+    K1 (``stochastic=False``) or K2 kernel on CUDA device ``index``.  The
+    first call for a device and mode also raises the kernel's shared-memory
+    limit there, which every launch needs."""
+    lib = _library()
+    per_sm = []
+    with torch.cuda.device(index):
+        for tile in ROW_TILES:
+            out = ctypes.c_int(0)
+            _raise_on(lib.rvq_blocks_per_sm(int(stochastic), tile,
+                                            ctypes.byref(out)),
+                      lib, "rvq_blocks_per_sm")
+            per_sm.append(out.value)
+    return (torch.cuda.get_device_properties(index).multi_processor_count,
+            tuple(per_sm))
+
 
 def _library() -> ctypes.CDLL:
     global _lib
@@ -42,12 +167,15 @@ def _library() -> ctypes.CDLL:
         from . import cuda_build
 
         lib = cuda_build.load(SOURCE)
-        buffers = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+        buffers = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
         lib.rvq_argmin_encode.argtypes = buffers + [ctypes.c_void_p]
         lib.rvq_argmin_encode.restype = ctypes.c_int
         lib.rvq_sample_encode.argtypes = buffers + [
             ctypes.c_float, ctypes.c_uint64, ctypes.c_void_p]
         lib.rvq_sample_encode.restype = ctypes.c_int
+        lib.rvq_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int,
+                                          ctypes.POINTER(ctypes.c_int)]
+        lib.rvq_blocks_per_sm.restype = ctypes.c_int
         lib.rvq_philox_uniforms.argtypes = [ctypes.c_void_p] + [
             ctypes.c_int] * 3 + [ctypes.c_uint64, ctypes.c_void_p]
         lib.rvq_philox_uniforms.restype = ctypes.c_int
@@ -77,14 +205,16 @@ def _raise_on(rc: int, lib, what: str) -> None:
 
 
 def rvq_encode_cuda(codebook: torch.Tensor, x: torch.Tensor,
-                    temperature: Optional[float] = None, seed: int = 0
+                    temperature: Optional[float] = None, seed: int = 0,
+                    plan: Optional[LaunchPlan] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One kernel call: ``x [M, D]``, ``codebook [N, K, D]`` (float32,
     contiguous, same CUDA device) → ``(codes [N, M] int32,
     err [N, M] float32, qsum [M, D] float32)``, where ``err`` is
     ``‖r − q‖²`` after each layer's update.  ``temperature=None`` is K1
     (argmin); a temperature > 0 is K2, sampling with Philox draws keyed by
-    ``seed`` (0 ≤ seed < 2**64)."""
+    ``seed`` (0 ≤ seed < 2**64).  ``plan`` overrides :func:`launch_plan`'s
+    choice (for measuring); the results do not depend on it."""
     global launches, sample_launches
     if x.device.type != "cuda":
         raise ValueError(f"rvq kernel needs CUDA tensors, got {x.device}")
@@ -99,20 +229,32 @@ def rvq_encode_cuda(codebook: torch.Tensor, x: torch.Tensor,
                          f"{temperature}")
     if not 0 <= seed < 2 ** 64:
         raise ValueError(f"rvq kernel: seed {seed} is not a 64-bit unsigned")
+    if plan is not None and (plan.m, plan.k) != (m, k):
+        raise ValueError(f"rvq kernel: plan for m={plan.m}, k={plan.k} given "
+                         f"for m={m}, k={k}")
     if m == 0:
         return (torch.empty((n, 0), dtype=torch.int32, device=x.device),
                 torch.empty((n, 0), device=x.device), x.new_empty((0, d)))
     lib = _library()
+    card = resident_blocks(x.device.index if x.device.index is not None
+                           else torch.cuda.current_device(),
+                           temperature is not None)
+    if plan is None:
+        plan = launch_plan(m, k, *card)
+    # 16-byte copies need every row on a 16-byte boundary; other inputs
+    # take the kernel's one-float path.
+    vec = int(d % 4 == 0 and x.data_ptr() % 16 == 0
+              and codebook.data_ptr() % 16 == 0)
     codes = torch.empty((n, m), dtype=torch.int32, device=x.device)
     err = torch.empty((n, m), dtype=torch.float32, device=x.device)
     qsum = torch.empty((m, d), dtype=torch.float32, device=x.device)
-    csq = torch.empty((n, k), dtype=torch.float32, device=x.device)
     residual = torch.empty((m, d), dtype=torch.float32, device=x.device)
     rsq = torch.empty((m,), dtype=torch.float32, device=x.device)
     keys = torch.empty((m,), dtype=torch.int64, device=x.device)
-    args = (x.data_ptr(), codebook.data_ptr(), csq.data_ptr(),
-            residual.data_ptr(), rsq.data_ptr(), keys.data_ptr(),
-            codes.data_ptr(), err.data_ptr(), qsum.data_ptr(), m, n, k, d)
+    args = (x.data_ptr(), codebook.data_ptr(), residual.data_ptr(),
+            rsq.data_ptr(), keys.data_ptr(), codes.data_ptr(),
+            err.data_ptr(), qsum.data_ptr(), m, n, k, d, plan.row_tile,
+            plan.smem_bytes, plan.grid_blocks, vec)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if temperature is None:

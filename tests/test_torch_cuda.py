@@ -6,9 +6,12 @@ configuration, which imports JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
 The kernels are held against their plain PyTorch versions on the card: K1
-(argmin) and K2 (sampling, fed the uniforms the kernel's own Philox draws)
-against the plain chain, K3 (the training encode) against autograd through
-the plain straight-through version.  A small tokenizer on the card is held
+(argmin; ragged rows, codes and depths, unaligned rows, and duplicated
+codebook rows whose ties go to the lowest index) and K2 (sampling, fed the
+uniforms the kernel's own Philox draws) against the plain chain, K3 (the
+training encode) against autograd through the plain straight-through
+version.  K1 and K2 must give the same bits under every launch plan.
+A small tokenizer on the card is held
 against the same tokenizer on the CPU (float32, TF32 off), and a small
 train step on the card must go through K3 and keep float32 params.
 Near-tie budget 2% (layer 0 exact in argmin mode), as in
@@ -35,14 +38,7 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("m,k", [(81, 4096), (200, 4096), (81, 1000),
-                                 (1, 1)])
-def test_kernel_matches_plain_chain(card, m, k):
-    rng = np.random.default_rng(m * 7 + k)
-    cb = torch.from_numpy(rng.standard_normal((4, k, 512)).astype(
-        np.float32)).to(card)
-    x = torch.from_numpy(rng.standard_normal((m, 512)).astype(
-        np.float32)).to(card)
+def _check_against_plain(cb, x):
     before = rvq_kernel.launches
     codes, err, qsum = rvq_kernel.rvq_encode_cuda(cb, x)
     ref_codes, ref_err, ref_qsum = plain.rvq_chain(cb, x)
@@ -56,6 +52,87 @@ def test_kernel_matches_plain_chain(card, m, k):
                                atol=QSUM_ATOL)
     torch.testing.assert_close(err[:, agree], ref_err[:, agree], rtol=1e-4,
                                atol=1e-4)
+
+
+# Row counts around the row tiles (1, 17, 81 and 88 in one tile of 32 or
+# 96 rows, 129 just past 128, 648 a kernel-phase batch) against code counts
+# around the 32-code chunk; then depths that are not a multiple of the
+# 32-deep slice (500) or are one slice (32).
+@pytest.mark.parametrize("m,k,d", [
+    (m, k, 512) for m in (1, 17, 81, 88, 129, 648)
+    for k in (1, 1000, 4096, 4097)] + [
+    (200, 4096, 512), (81, 4096, 32), (81, 4096, 500), (17, 4097, 500),
+    (129, 1000, 32)])
+def test_kernel_matches_plain_chain(card, m, k, d):
+    rng = np.random.default_rng(m * 7 + k + d)
+    cb = torch.from_numpy(rng.standard_normal((4, k, d)).astype(
+        np.float32)).to(card)
+    x = torch.from_numpy(rng.standard_normal((m, d)).astype(
+        np.float32)).to(card)
+    _check_against_plain(cb, x)
+
+
+@pytest.mark.parametrize("d", [512, 3])
+def test_kernel_takes_rows_off_the_16_byte_grid(card, d):
+    """x starting one float into its storage, or a depth that is not a
+    multiple of 4, goes through the kernel's one-float copies."""
+    rng = np.random.default_rng(d)
+    cb = torch.from_numpy(rng.standard_normal((4, 300, d)).astype(
+        np.float32)).to(card)
+    flat = torch.from_numpy(rng.standard_normal(81 * d + 1).astype(
+        np.float32)).to(card)
+    x = flat[1:].view(81, d)
+    assert x.data_ptr() % 16 != 0
+    _check_against_plain(cb, x)
+
+
+def test_kernel_ties_go_to_the_lowest_index(card):
+    """A codebook whose rows repeat (within a 32-code chunk and across
+    chunks): every pick is the first copy, as in torch.argmin."""
+    rng = np.random.default_rng(21)
+    base = rng.standard_normal((4, 1024, 512)).astype(np.float32)
+    cb = np.concatenate([base, base, base[:, :100]], axis=1)   # K = 2148
+    cb[:, 1::2] = cb[:, 0::2][:, :cb[:, 1::2].shape[1]]
+    cb = torch.from_numpy(np.ascontiguousarray(cb)).to(card)
+    x = torch.from_numpy(rng.standard_normal((81, 512)).astype(
+        np.float32)).to(card)
+    codes = rvq_kernel.rvq_encode_cuda(cb, x)[0].long()
+    ref_codes = plain.rvq_chain(cb, x)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(codes, ref_codes)
+    first = torch.stack([
+        (cb[n][:, None, :] == cb[n][None, codes[n], :]).all(dim=2).int()
+        .argmax(dim=0) for n in range(4)])
+    assert torch.equal(codes, first)
+
+
+@pytest.mark.parametrize("temperature", [None, 0.5])
+def test_kernel_results_do_not_depend_on_the_plan(card, temperature):
+    """The same rows under each row tile, and as part of calls whose M gets
+    another tile (17 rows: one tile of 32; 81 rows: one of 96), give the
+    same codes, errors and sums bit for bit, K1 and K2 alike."""
+    rng = np.random.default_rng(5)
+    cb = torch.from_numpy(rng.standard_normal((4, 4096, 512)).astype(
+        np.float32)).to(card)
+    x = torch.from_numpy(rng.standard_normal((81, 512)).astype(
+        np.float32)).to(card)
+    sms, per_sm = rvq_kernel.resident_blocks(card.index or 0,
+                                             temperature is not None)
+    outs = []
+    for tile in rvq_kernel.ROW_TILES:
+        plan = rvq_kernel.plan_with_tile(
+            81, 4096, tile, sms * per_sm[rvq_kernel.ROW_TILES.index(tile)])
+        outs.append(rvq_kernel.rvq_encode_cuda(cb, x, temperature, 3, plan))
+    head = rvq_kernel.rvq_encode_cuda(cb, x[:17].contiguous(), temperature, 3)
+    assert rvq_kernel.launch_plan(17, 4096, sms, per_sm).row_tile == 32
+    assert rvq_kernel.launch_plan(81, 4096, sms, per_sm).row_tile == 96
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
+    codes, err, qsum = outs[0]
+    assert torch.equal(head[0], codes[:, :17])
+    assert torch.equal(head[1], err[:, :17])
+    assert torch.equal(head[2], qsum[:17])
 
 
 def test_kernel_refuses_wrong_inputs(card):
@@ -106,7 +183,8 @@ def test_k2_uniforms_are_the_host_philox(card):
     assert torch.equal(u.cpu(), torch.from_numpy(ref))
 
 
-@pytest.mark.parametrize("m,k", [(81, 4096), (200, 4096), (81, 1000)])
+@pytest.mark.parametrize("m,k", [(81, 4096), (200, 4096), (81, 1000),
+                                 (17, 4097), (129, 1000), (1, 33)])
 def test_k2_matches_plain_on_the_same_uniforms(card, m, k):
     cb, x = _inputs(card, m, k, seed=m + k)
     before = rvq_kernel.sample_launches

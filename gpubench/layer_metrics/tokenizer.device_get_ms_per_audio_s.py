@@ -1,0 +1,15 @@
+"""Host milliseconds in ``nat/device_get`` per second of audio tokenized in
+the window: the host waiting on the card for a span group's outputs.
+Inclusive wall of the program's span, summed over threads
+(``utils/profiling.stage_timings``). Moves ``audio_s_per_s``."""
+
+SPAN = "nat/device_get"
+
+
+def read(ctx):
+    if ctx.get("driver") != "files" or not ctx.get("audio_s"):
+        return None
+    seconds = ctx["stages"].get(SPAN)
+    if seconds is None:
+        return None
+    return 1e3 * seconds / ctx["audio_s"]

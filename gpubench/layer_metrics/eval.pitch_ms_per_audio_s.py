@@ -1,0 +1,16 @@
+"""Host milliseconds in ``nat/eval/pitch`` per second of audio tokenized in
+the window: the metric suite's ``pitch_accuracy`` (``piptrack`` over both
+signals); only where the mix reconstructs. Inclusive wall of the program's
+span, summed over threads (``utils/profiling.stage_timings``); None where
+the program has no such span. Moves ``audio_s_per_s``."""
+
+SPAN = "nat/eval/pitch"
+
+
+def read(ctx):
+    if ctx.get("driver") != "files" or not ctx.get("audio_s"):
+        return None
+    seconds = ctx["stages"].get(SPAN)
+    if seconds is None:
+        return None
+    return 1e3 * seconds / ctx["audio_s"]

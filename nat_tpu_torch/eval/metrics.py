@@ -19,6 +19,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..utils.memory import get_memory_usage_mb
+from ..utils.profiling import annotate
 
 
 @dataclass
@@ -123,45 +124,53 @@ class TokenizationEvaluator:
         num_samples: Optional[int] = None,
     ) -> TokenizationMetrics:
         """``num_samples`` overrides ``audio.size`` for the compression
-        ratio (streaming callers evaluate after trimming their buffers)."""
+        ratio (streaming callers evaluate after trimming their buffers).
+        The reconstruction's parts run in regions of their own,
+        ``nat/eval/spectral``, ``nat/eval/pitch``, ``nat/eval/rhythm`` and
+        ``nat/eval/timbral``, then the token statistics in
+        ``nat/eval/tokens``; the memory probe that opens the evaluation
+        lies in none of them."""
         initial_memory = get_memory_usage_mb()
-        result = precomputed_result or {}
-        sem_codes: List[np.ndarray] = [
-            np.asarray(c).reshape(-1) for c in result.get("semantic_codes", [])]
-        acc_codes: List[np.ndarray] = [
-            np.asarray(c).reshape(-1) for c in result.get("acoustic_codes", [])]
-        sem_all = (np.concatenate(sem_codes) if sem_codes
-                   else np.array([], dtype=int))
-        acc_all = (np.concatenate(acc_codes) if acc_codes
-                   else np.array([], dtype=int))
-        if num_samples is None:
-            num_samples = int(np.asarray(audio).size)
-        total_tokens = int(sem_all.size + acc_all.size)
         recon = (self._reconstruction_metrics(audio, reconstructed)
                  if reconstructed is not None else {})
-        mi = mutual_information(sem_all, acc_all)
-        final_memory = get_memory_usage_mb()
-        return TokenizationMetrics(
-            num_semantic_tokens=int(sem_all.size),
-            num_acoustic_tokens=int(acc_all.size),
-            compression_ratio=num_samples / max(total_tokens, 1),
-            token_diversity=grouped_token_diversity(sem_all, acc_all),
-            mse_loss=recon.get("mse_loss", 0.0),
-            spectral_loss=recon.get("spectral_loss", 0.0),
-            perceptual_loss=recon.get("perceptual_loss", 0.0),
-            mr_stft_loss=recon.get("mr_stft_loss", 0.0),
-            log_spectral_distance=recon.get("log_spectral_distance", 0.0),
-            semantic_entropy=shannon_entropy(sem_all),
-            acoustic_entropy=shannon_entropy(acc_all),
-            mutual_information=mi,
-            pitch_accuracy=recon.get("pitch_accuracy", 0.0),
-            rhythm_accuracy=recon.get("rhythm_accuracy", 0.0),
-            timbral_similarity=recon.get("timbral_similarity", 0.0),
-            encoding_time=encoding_time,
-            decoding_time=decoding_time,
-            # Memory increase during evaluation.
-            memory_usage=max(final_memory - initial_memory, 0.0),
-        )
+        with annotate("nat/eval/tokens"):
+            result = precomputed_result or {}
+            sem_codes: List[np.ndarray] = [
+                np.asarray(c).reshape(-1)
+                for c in result.get("semantic_codes", [])]
+            acc_codes: List[np.ndarray] = [
+                np.asarray(c).reshape(-1)
+                for c in result.get("acoustic_codes", [])]
+            sem_all = (np.concatenate(sem_codes) if sem_codes
+                       else np.array([], dtype=int))
+            acc_all = (np.concatenate(acc_codes) if acc_codes
+                       else np.array([], dtype=int))
+            if num_samples is None:
+                num_samples = int(np.asarray(audio).size)
+            total_tokens = int(sem_all.size + acc_all.size)
+            mi = mutual_information(sem_all, acc_all)
+            final_memory = get_memory_usage_mb()
+            return TokenizationMetrics(
+                num_semantic_tokens=int(sem_all.size),
+                num_acoustic_tokens=int(acc_all.size),
+                compression_ratio=num_samples / max(total_tokens, 1),
+                token_diversity=grouped_token_diversity(sem_all, acc_all),
+                mse_loss=recon.get("mse_loss", 0.0),
+                spectral_loss=recon.get("spectral_loss", 0.0),
+                perceptual_loss=recon.get("perceptual_loss", 0.0),
+                mr_stft_loss=recon.get("mr_stft_loss", 0.0),
+                log_spectral_distance=recon.get("log_spectral_distance", 0.0),
+                semantic_entropy=shannon_entropy(sem_all),
+                acoustic_entropy=shannon_entropy(acc_all),
+                mutual_information=mi,
+                pitch_accuracy=recon.get("pitch_accuracy", 0.0),
+                rhythm_accuracy=recon.get("rhythm_accuracy", 0.0),
+                timbral_similarity=recon.get("timbral_similarity", 0.0),
+                encoding_time=encoding_time,
+                decoding_time=decoding_time,
+                # Memory increase during evaluation.
+                memory_usage=max(final_memory - initial_memory, 0.0),
+            )
 
     def _reconstruction_metrics(self, audio: np.ndarray,
                                 reconstructed: np.ndarray
@@ -170,25 +179,31 @@ class TokenizationEvaluator:
         145-172); all 0.0 when either signal is empty."""
         from . import audio_metrics
 
-        recon_raw = np.asarray(reconstructed, dtype=np.float32).reshape(-1)
-        orig_full = np.asarray(audio, dtype=np.float32).reshape(-1)
-        recon = recon_raw - np.mean(recon_raw)
-        n = min(recon.size, orig_full.size)
-        if n == 0:
-            return {}
-        recon, orig = recon[:n], orig_full[:n]
         sr = self.sample_rate
-        return {
-            "mse_loss": float(np.mean((recon - orig) ** 2)),
-            "spectral_loss": audio_metrics.spectral_mse(orig, recon),
-            "mr_stft_loss": audio_metrics.mr_stft_loss(orig, recon),
-            "log_spectral_distance": audio_metrics.log_spectral_distance(
-                orig, recon),
-            "perceptual_loss": audio_metrics.perceptual_loss(orig, recon, sr),
-            "pitch_accuracy": audio_metrics.pitch_accuracy(orig_full,
-                                                           recon_raw, sr),
-            "rhythm_accuracy": audio_metrics.rhythm_accuracy(orig_full,
-                                                             recon_raw, sr),
-            "timbral_similarity": audio_metrics.timbral_similarity(
-                orig_full, recon_raw, sr),
-        }
+        with annotate("nat/eval/spectral"):
+            recon_raw = np.asarray(reconstructed, dtype=np.float32).reshape(-1)
+            orig_full = np.asarray(audio, dtype=np.float32).reshape(-1)
+            recon = recon_raw - np.mean(recon_raw)
+            n = min(recon.size, orig_full.size)
+            if n == 0:
+                return {}
+            recon, orig = recon[:n], orig_full[:n]
+            out = {
+                "mse_loss": float(np.mean((recon - orig) ** 2)),
+                "spectral_loss": audio_metrics.spectral_mse(orig, recon),
+                "mr_stft_loss": audio_metrics.mr_stft_loss(orig, recon),
+                "log_spectral_distance": audio_metrics.log_spectral_distance(
+                    orig, recon),
+                "perceptual_loss": audio_metrics.perceptual_loss(orig, recon,
+                                                                 sr),
+            }
+        with annotate("nat/eval/pitch"):
+            out["pitch_accuracy"] = audio_metrics.pitch_accuracy(
+                orig_full, recon_raw, sr)
+        with annotate("nat/eval/rhythm"):
+            out["rhythm_accuracy"] = audio_metrics.rhythm_accuracy(
+                orig_full, recon_raw, sr)
+        with annotate("nat/eval/timbral"):
+            out["timbral_similarity"] = audio_metrics.timbral_similarity(
+                orig_full, recon_raw, sr)
+        return out

@@ -1265,34 +1265,35 @@ class NeuralAudioTokenizer:
         """Fetch one span's outputs and keep the frames whose centers fall
         inside the span's own extent (overlap-discard)."""
         out = self._host_outputs(out, want_features)
-        valid_t = self._target_frames(meta.ext_len, meta.sr)
-        sem = out["semantic_codes"][:, :, :valid_t]
-        acc = out["acoustic_codes"][:, :, :valid_t]
-        if meta.overlap:
-            # Frame f covers samples centered at (f+0.5)*ext_len/valid_t
-            # (relative to ext_start); keep centers inside [start, end).
-            centers = meta.ext_start + (np.arange(valid_t) + 0.5) * (
-                meta.ext_len / max(valid_t, 1))
-            keep = ((centers >= meta.start)
-                    & (centers < meta.start + meta.length))
-            sem, acc = sem[:, :, keep], acc[:, :, keep]
-        reconstructed = None
-        if out["reconstructed"] is not None:
-            valid_samples = min(valid_t * self.hop_length, meta.ext_len)
-            reconstructed = out["reconstructed"][:, :valid_samples]
+        with annotate("nat/finalize"):
+            valid_t = self._target_frames(meta.ext_len, meta.sr)
+            sem = out["semantic_codes"][:, :, :valid_t]
+            acc = out["acoustic_codes"][:, :, :valid_t]
             if meta.overlap:
-                lo = meta.start - meta.ext_start
-                reconstructed = reconstructed[:, lo:lo + meta.length]
-        return {
-            "semantic_codes": sem,
-            "acoustic_codes": acc,
-            "reconstructed": reconstructed,
-            "losses": self.row_losses(out["losses"], 0),
-            "semantic_features": (out["semantic_features"]
-                                  if want_features else None),
-            "acoustic_features": (out["acoustic_features"]
-                                  if want_features else None),
-        }
+                # Frame f covers samples centered at (f+0.5)*ext_len/valid_t
+                # (relative to ext_start); keep centers inside [start, end).
+                centers = meta.ext_start + (np.arange(valid_t) + 0.5) * (
+                    meta.ext_len / max(valid_t, 1))
+                keep = ((centers >= meta.start)
+                        & (centers < meta.start + meta.length))
+                sem, acc = sem[:, :, keep], acc[:, :, keep]
+            reconstructed = None
+            if out["reconstructed"] is not None:
+                valid_samples = min(valid_t * self.hop_length, meta.ext_len)
+                reconstructed = out["reconstructed"][:, :valid_samples]
+                if meta.overlap:
+                    lo = meta.start - meta.ext_start
+                    reconstructed = reconstructed[:, lo:lo + meta.length]
+            return {
+                "semantic_codes": sem,
+                "acoustic_codes": acc,
+                "reconstructed": reconstructed,
+                "losses": self.row_losses(out["losses"], 0),
+                "semantic_features": (out["semantic_features"]
+                                      if want_features else None),
+                "acoustic_features": (out["acoustic_features"]
+                                      if want_features else None),
+            }
 
     def finalize_span_group(self, out: Dict, metas: List[SpanMeta],
                             want_features: bool = True):
@@ -1304,11 +1305,14 @@ class NeuralAudioTokenizer:
             yield self.finalize_span(host, metas[0], want_features)
             return
         for g, meta in enumerate(metas):
-            row = {k: (None if host[k] is None
-                       else host[k][:, g:g + 1] if k.endswith("codes")
-                       else host[k][g:g + 1]) for k in OUTPUT_KEYS}
-            row["losses"] = {k: np.asarray(v).reshape(-1)[g:g + 1]
-                             for k, v in host["losses"].items()}
+            # No region stays open across the yield: the consumer's own
+            # regions run between yields.
+            with annotate("nat/finalize"):
+                row = {k: (None if host[k] is None
+                           else host[k][:, g:g + 1] if k.endswith("codes")
+                           else host[k][g:g + 1]) for k in OUTPUT_KEYS}
+                row["losses"] = {k: np.asarray(v).reshape(-1)[g:g + 1]
+                                 for k, v in host["losses"].items()}
             yield self.finalize_span(row, meta, want_features)
 
     def tokenize_span(self, chunk: np.ndarray, ext_start: int, start: int,
@@ -1366,10 +1370,12 @@ class NeuralAudioTokenizer:
         def stage_next() -> None:
             item = next(plan, None)
             if item is not None:
-                chunks, metas = self._prepare_group(src, item, overlap, sr,
-                                                    total)
-                staged.append((self._upload(self._pad_group_rows(
-                    np.concatenate(chunks, 0), group_size), divisor), metas))
+                with annotate("nat/stage"):
+                    chunks, metas = self._prepare_group(src, item, overlap,
+                                                        sr, total)
+                    staged.append((self._upload(self._pad_group_rows(
+                        np.concatenate(chunks, 0), group_size), divisor),
+                        metas))
 
         for _ in range(1 + self._stage_ahead()):
             stage_next()

@@ -42,7 +42,8 @@ switches.
 * **Launch counts.**  A capture records K1/K2 launches into a tally
   (:func:`nat_tpu_torch.ops.rvq_kernel.recording`) and each replay adds
   the tally to the kernels' counts.  ``stats`` counts captures, replays,
-  eager runs, failed captures and invalidations.
+  eager runs, failed captures and invalidations, and the samples of
+  every forward (padded rows, bucket padding and overlap included).
 * **Invalidation.**  A graph holds the addresses of the weights and
   codebooks it read.  The tokenizer drops its graphs (:meth:`invalidate`)
   wherever it replaces them, as the reference clears ``_forward_cache``.
@@ -148,7 +149,8 @@ class ForwardGraphs:
         self._pool = None
         self._stream = None
         self.stats = {"captures": 0, "replays": 0, "eager": 0, "failed": 0,
-                      "invalidations": 0}
+                      "invalidations": 0, "samples": 0}
+        self._samples_lock = threading.Lock()
 
     def enabled(self) -> bool:
         return self.capture is not None and cache_enabled()
@@ -168,7 +170,12 @@ class ForwardGraphs:
         one; else eagerly at the key's first sight in this thread (and
         whenever graphs are off, ``capture`` is False or its capture
         failed); else captured now and replayed.  ``inputs`` are tensors
-        on the cache's device, or None."""
+        on the cache's device, or None.  ``stats["samples"]`` counts the
+        elements of the first input of every run, eager, captured or
+        replayed (the tokenizer's padded ``[rows, bucket]`` batch), under
+        a lock: threads share the cache."""
+        with self._samples_lock:
+            self.stats["samples"] += inputs[0].numel()
         ran = getattr(self._ran, "keys", None)
         if ran is None:
             ran = self._ran.keys = set()

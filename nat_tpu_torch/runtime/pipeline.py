@@ -262,32 +262,42 @@ class AudioTokenizationPipeline:
             for line in result["ndjson_output"].splitlines():
                 write(line)
             return result
-        logger.info(f"Processing (streaming): {file_path}")
-        start_time = time.time()
-        self.budget_meter.reset()
-        with annotate("nat/load_audio"):
-            audio, sr, pcm16_hint = self._load_audio_ex(file_path)
-        duration = len(audio) / sr
-        with annotate("nat/sha256"):
-            audio_hash = self._audio_sha256(audio)
-        self._emit_stream_header(write, file_path, sr, duration, audio_hash)
-        self._seed_from(audio, sr)
-        sem_parts: List[np.ndarray] = []
-        acc_parts: List[np.ndarray] = []
-        encode_start = time.time()
-        with annotate("nat/tokenize"):
-            for out in self.tokenizer.iter_chunks(audio[None, :],
-                                                  actual_sample_rate=sr,
-                                                  want_features=False,
-                                                  pcm16_hint=pcm16_hint):
-                self._emit_frames(write, out, sem_parts, acc_parts)
-        encoding_time = time.time() - encode_start
-        result = self._finalize_stream(write, audio, sr, sem_parts, acc_parts,
-                                       encoding_time)
-        result["metadata"] = self._metadata(file_path, sr, duration,
-                                            audio_hash)
-        logger.info(f"Streaming complete in {time.time() - start_time:.2f}s")
-        return result
+        with annotate("nat/file"):
+            logger.info(f"Processing (streaming): {file_path}")
+            start_time = time.time()
+            self.budget_meter.reset()
+            with annotate("nat/load_audio"):
+                audio, sr, pcm16_hint = self._load_audio_ex(file_path)
+            duration = len(audio) / sr
+            with annotate("nat/sha256"):
+                audio_hash = self._audio_sha256(audio)
+            self._begin_stream(write, file_path, audio, sr, duration,
+                               audio_hash)
+            sem_parts: List[np.ndarray] = []
+            acc_parts: List[np.ndarray] = []
+            encode_start = time.time()
+            with annotate("nat/tokenize"):
+                for out in self.tokenizer.iter_chunks(audio[None, :],
+                                                      actual_sample_rate=sr,
+                                                      want_features=False,
+                                                      pcm16_hint=pcm16_hint):
+                    self._emit_frames(write, out, sem_parts, acc_parts)
+            encoding_time = time.time() - encode_start
+            result = self._finalize_stream(write, audio, sr, sem_parts,
+                                           acc_parts, encoding_time)
+            result["metadata"] = self._metadata(file_path, sr, duration,
+                                                audio_hash)
+            logger.info("Streaming complete in "
+                        f"{time.time() - start_time:.2f}s")
+            return result
+
+    def _begin_stream(self, write, label: str, audio: np.ndarray, sr: int,
+                      duration: float, audio_hash) -> None:
+        """``nat/begin``: the stream's header, then the codebooks' seeding
+        from ``audio`` where a feature-driven method still waits for it."""
+        with annotate("nat/begin"):
+            self._emit_stream_header(write, label, sr, duration, audio_hash)
+            self._seed_from(audio, sr)
 
     def _emit_stream_header(self, write, label: str, sr: int,
                             duration: float, audio_hash) -> None:
@@ -333,7 +343,9 @@ class AudioTokenizationPipeline:
                          "built without a decoder; skipping")
             return None, 0.0
         decode_start = time.time()
-        recon = self.tokenizer.decode_tokens(semantic_codes, acoustic_codes)
+        with annotate("nat/decode"):
+            recon = self.tokenizer.decode_tokens(semantic_codes,
+                                                 acoustic_codes)
         return recon.reshape(-1), time.time() - decode_start
 
     def _finalize_stream(self, write, audio: np.ndarray, sr: int,
@@ -350,34 +362,38 @@ class AudioTokenizationPipeline:
         finish); ``sha`` is the raw bytes' digest for the ``end`` stats."""
         if num_samples is None:
             num_samples = len(audio)
-        sem_codes = np.concatenate(sem_parts, axis=-1)
-        acc_codes = np.concatenate(acc_parts, axis=-1)
-        result = {
-            "semantic_codes": [sem_codes[i] for i in range(sem_codes.shape[0])],
-            "acoustic_codes": [acc_codes[i] for i in range(acc_codes.shape[0])],
-        }
+        with annotate("nat/finish"):
+            sem_codes = np.concatenate(sem_parts, axis=-1)
+            acc_codes = np.concatenate(acc_parts, axis=-1)
+            result = {
+                "semantic_codes": [sem_codes[i]
+                                   for i in range(sem_codes.shape[0])],
+                "acoustic_codes": [acc_codes[i]
+                                   for i in range(acc_codes.shape[0])],
+            }
+            num_frames = int(sem_codes.shape[-1])
+            self.budget_meter.sample_rate = sr
+            self.budget_meter.update(num_samples, num_frames,
+                                     int(sem_codes.size), int(acc_codes.size))
+            self._log_token_diversity(result["semantic_codes"],
+                                      result["acoustic_codes"])
         if reconstruct is None:
             reconstruct = self.enable_reconstruction
         reconstructed, decoding_time = self._decode_reconstruction(
             reconstruct, result["semantic_codes"], result["acoustic_codes"])
-        num_frames = int(sem_codes.shape[-1])
-        self.budget_meter.sample_rate = sr
-        self.budget_meter.update(num_samples, num_frames,
-                                 int(sem_codes.size), int(acc_codes.size))
-        self._log_token_diversity(result["semantic_codes"],
-                                  result["acoustic_codes"])
         self.evaluator.sample_rate = sr
         with annotate("nat/evaluate"):
             metrics = self.evaluator.evaluate_tokenization(
                 audio, self.tokenizer, reconstructed,
                 precomputed_result=result, encoding_time=encoding_time,
                 decoding_time=decoding_time, num_samples=num_samples)
-        budget = self.budget_meter.get_metrics()
-        stats = {**asdict(metrics), **asdict(budget)}
-        if sha:
-            stats["audio_sha256"] = sha
-        for line in self.streaming.end_stream(stats):
-            write(line)
+        with annotate("nat/finish"):
+            budget = self.budget_meter.get_metrics()
+            stats = {**asdict(metrics), **asdict(budget)}
+            if sha:
+                stats["audio_sha256"] = sha
+            for line in self.streaming.end_stream(stats):
+                write(line)
         return {
             **result,
             "metrics": metrics,
@@ -400,37 +416,39 @@ class AudioTokenizationPipeline:
         if self.compat_mode:
             raise ValueError("stream_audio_array requires the neural "
                              "tokenizer")
-        tok = self.tokenizer
-        tok.ensure_initialized()
-        start_time = time.time()
-        self.budget_meter.reset()
-        audio = np.asarray(audio, dtype=np.float32).reshape(-1)
-        if normalize:
-            audio = audio_io.peak_normalize(audio)
-        duration = len(audio) / sr
-        audio_hash = self._audio_sha256(audio)
-        self._emit_stream_header(write, label, sr, duration, audio_hash)
-        self._seed_from(audio, sr)
-        total = len(audio)
-        overlap = int(sr)
-        spans = chunk_spans(total, sr, overlap=overlap)
-        if len(spans) == 1:
-            overlap = 0
-        sem_parts: List[np.ndarray] = []
-        acc_parts: List[np.ndarray] = []
-        wave = audio[None, :]
-        encode_start = time.time()
-        with annotate("nat/tokenize"):
-            self._tokenize_spans(write, wave, sr, spans, overlap, pcm16_hint,
-                                 sem_parts, acc_parts)
-        encoding_time = time.time() - encode_start
-        result = self._finalize_stream(write, audio, sr, sem_parts, acc_parts,
-                                       encoding_time)
-        result["metadata"] = self._metadata(label, sr, duration, audio_hash)
-        logger.info(f"Buffered-stream complete in "
-                    f"{time.time() - start_time:.2f}s ({duration:.1f}s "
-                    f"audio, {result['num_frames']} frames)")
-        return result
+        with annotate("nat/file"):
+            tok = self.tokenizer
+            tok.ensure_initialized()
+            start_time = time.time()
+            self.budget_meter.reset()
+            audio = np.asarray(audio, dtype=np.float32).reshape(-1)
+            if normalize:
+                audio = audio_io.peak_normalize(audio)
+            duration = len(audio) / sr
+            with annotate("nat/sha256"):
+                audio_hash = self._audio_sha256(audio)
+            self._begin_stream(write, label, audio, sr, duration, audio_hash)
+            total = len(audio)
+            overlap = int(sr)
+            spans = chunk_spans(total, sr, overlap=overlap)
+            if len(spans) == 1:
+                overlap = 0
+            sem_parts: List[np.ndarray] = []
+            acc_parts: List[np.ndarray] = []
+            wave = audio[None, :]
+            encode_start = time.time()
+            with annotate("nat/tokenize"):
+                self._tokenize_spans(write, wave, sr, spans, overlap,
+                                     pcm16_hint, sem_parts, acc_parts)
+            encoding_time = time.time() - encode_start
+            result = self._finalize_stream(write, audio, sr, sem_parts,
+                                           acc_parts, encoding_time)
+            result["metadata"] = self._metadata(label, sr, duration,
+                                                audio_hash)
+            logger.info(f"Buffered-stream complete in "
+                        f"{time.time() - start_time:.2f}s ({duration:.1f}s "
+                        f"audio, {result['num_frames']} frames)")
+            return result
 
     def _tokenize_spans(self, write, wave, sr, spans, overlap, pcm16_hint,
                         sem_parts, acc_parts) -> None:
@@ -676,109 +694,114 @@ class AudioTokenizationPipeline:
         visualizations read, on the device.  ``_preloaded`` (audio, sr)
         and ``_pretokenized`` (result, encoding_time) inject the work of
         :meth:`_tokenize_many`."""
-        logger.info(f"Processing: {file_path}")
-        start_time = time.time()
-        self.budget_meter.reset()
-        pcm16_hint = None
-        if _preloaded is not None:
-            audio, sr = _preloaded
-        else:
-            with annotate("nat/load_audio"):
-                audio, sr, pcm16_hint = self._load_audio_ex(file_path)
-        duration = len(audio) / sr
-        logger.info(f"Loaded audio: {len(audio)} samples, {sr} Hz, "
-                    f"{duration:.2f}s")
-        if not check_memory_requirements(len(audio), sr):
-            logger.warn("May not have sufficient memory for processing this "
-                        "file")
-        audio_hash = self._audio_sha256(audio)
-        self.streaming.ndjson_streamer.audio_sha256 = audio_hash
+        with annotate("nat/file"):
+            logger.info(f"Processing: {file_path}")
+            start_time = time.time()
+            self.budget_meter.reset()
+            pcm16_hint = None
+            if _preloaded is not None:
+                audio, sr = _preloaded
+            else:
+                with annotate("nat/load_audio"):
+                    audio, sr, pcm16_hint = self._load_audio_ex(file_path)
+            duration = len(audio) / sr
+            logger.info(f"Loaded audio: {len(audio)} samples, {sr} Hz, "
+                        f"{duration:.2f}s")
+            if not check_memory_requirements(len(audio), sr):
+                logger.warn("May not have sufficient memory for processing "
+                            "this file")
+            with annotate("nat/sha256"):
+                audio_hash = self._audio_sha256(audio)
+            self.streaming.ndjson_streamer.audio_sha256 = audio_hash
 
-        if _pretokenized is not None:
-            result, encoding_time = _pretokenized
-        else:
-            self._seed_from(audio, sr)
-            encode_start = time.time()
-            with annotate("nat/tokenize"):
-                result = self._tokenize(audio, sr, want_features, pcm16_hint)
-            encoding_time = time.time() - encode_start
-        semantic_codes = result["semantic_codes"]
-        acoustic_codes = result["acoustic_codes"]
-        num_frames = int(result.get("num_frames", 0))
+            if _pretokenized is not None:
+                result, encoding_time = _pretokenized
+            else:
+                self._seed_from(audio, sr)
+                encode_start = time.time()
+                with annotate("nat/tokenize"):
+                    result = self._tokenize(audio, sr, want_features,
+                                            pcm16_hint)
+                encoding_time = time.time() - encode_start
+            semantic_codes = result["semantic_codes"]
+            acoustic_codes = result["acoustic_codes"]
+            num_frames = int(result.get("num_frames", 0))
 
-        recon, decoding_time = self._decode_reconstruction(
-            self.enable_reconstruction, semantic_codes, acoustic_codes)
-        num_sem = sum(int(np.asarray(c).size) for c in semantic_codes)
-        num_acc = sum(int(np.asarray(c).size) for c in acoustic_codes)
-        self.budget_meter.sample_rate = sr
-        self.budget_meter.update(len(audio), num_frames, num_sem, num_acc)
-        logger.info(f"Total tokens: {num_sem + num_acc}")
-        self._log_token_diversity(semantic_codes, acoustic_codes)
+            recon, decoding_time = self._decode_reconstruction(
+                self.enable_reconstruction, semantic_codes, acoustic_codes)
+            num_sem = sum(int(np.asarray(c).size) for c in semantic_codes)
+            num_acc = sum(int(np.asarray(c).size) for c in acoustic_codes)
+            self.budget_meter.sample_rate = sr
+            self.budget_meter.update(len(audio), num_frames, num_sem, num_acc)
+            logger.info(f"Total tokens: {num_sem + num_acc}")
+            self._log_token_diversity(semantic_codes, acoustic_codes)
 
-        logger.progress("Evaluating tokenization quality...")
-        self.evaluator.sample_rate = sr
-        with annotate("nat/evaluate"):
-            metrics = self.evaluator.evaluate_tokenization(
-                audio, self.tokenizer, recon, precomputed_result=result,
-                encoding_time=encoding_time, decoding_time=decoding_time)
-        text_tokens = self.formatter.to_text_sequence(
-            semantic_codes, acoustic_codes, output_format)
-        budget_metrics = self.budget_meter.get_metrics()
-        json_tokens = self.formatter.to_json(
-            semantic_codes, acoustic_codes, metadata={
-                "file_path": file_path,
-                "sample_rate": sr,
-                "processing_sample_rate": self.sample_rate,
-                "duration": duration,
-                "processing_time": time.time() - start_time,
-                "budget_metrics": asdict(budget_metrics),
-                "audio_sha256": audio_hash,
-                "model_id": self.model_id,
-                "frames_per_second": budget_metrics.audio_frames_per_second,
-                "hop_ms": (self.hop_length / sr) * 1000.0,
-                "num_frames": num_frames,
-                "compat_mode": self.compat_mode,
-            })
-        stats = {**asdict(metrics), **asdict(budget_metrics)}
-        streaming_output = None
-        if streaming_mode:
-            header = self.streaming.create_stream_header(sr, len(audio))
-            chunk = self.streaming.create_chunk_marker(0, len(audio), result)
-            footer = self.streaming.create_stream_footer(stats)
-            streaming_output = f"{header}\n{chunk}\n{footer}"
-        ndjson_output = None
-        if ndjson_streaming:
-            ndjson_output = self.streaming.create_ndjson_stream(
-                result, metadata=self._header_metadata(file_path, sr,
-                                                       duration, audio_hash),
-                processing_stats=stats, duration_seconds=duration,
-                include_legend=self.include_legend)
-        total_time = time.time() - start_time
-        logger.info(f"Processing complete in {total_time:.2f}s")
+            logger.progress("Evaluating tokenization quality...")
+            self.evaluator.sample_rate = sr
+            with annotate("nat/evaluate"):
+                metrics = self.evaluator.evaluate_tokenization(
+                    audio, self.tokenizer, recon, precomputed_result=result,
+                    encoding_time=encoding_time, decoding_time=decoding_time)
+            text_tokens = self.formatter.to_text_sequence(
+                semantic_codes, acoustic_codes, output_format)
+            budget_metrics = self.budget_meter.get_metrics()
+            json_tokens = self.formatter.to_json(
+                semantic_codes, acoustic_codes, metadata={
+                    "file_path": file_path,
+                    "sample_rate": sr,
+                    "processing_sample_rate": self.sample_rate,
+                    "duration": duration,
+                    "processing_time": time.time() - start_time,
+                    "budget_metrics": asdict(budget_metrics),
+                    "audio_sha256": audio_hash,
+                    "model_id": self.model_id,
+                    "frames_per_second":
+                        budget_metrics.audio_frames_per_second,
+                    "hop_ms": (self.hop_length / sr) * 1000.0,
+                    "num_frames": num_frames,
+                    "compat_mode": self.compat_mode,
+                })
+            stats = {**asdict(metrics), **asdict(budget_metrics)}
+            streaming_output = None
+            if streaming_mode:
+                header = self.streaming.create_stream_header(sr, len(audio))
+                chunk = self.streaming.create_chunk_marker(0, len(audio),
+                                                           result)
+                footer = self.streaming.create_stream_footer(stats)
+                streaming_output = f"{header}\n{chunk}\n{footer}"
+            ndjson_output = None
+            if ndjson_streaming:
+                ndjson_output = self.streaming.create_ndjson_stream(
+                    result, metadata=self._header_metadata(
+                        file_path, sr, duration, audio_hash),
+                    processing_stats=stats, duration_seconds=duration,
+                    include_legend=self.include_legend)
+            total_time = time.time() - start_time
+            logger.info(f"Processing complete in {total_time:.2f}s")
 
-        # The reference's post-processing: DC removal, tanh soft limit.
-        reconstructed_audio = None
-        if recon is not None:
-            reconstructed_audio = np.tanh((recon - np.mean(recon)) * 0.95) \
-                * 0.95
-        return {
-            "semantic_codes": semantic_codes,
-            "acoustic_codes": acoustic_codes,
-            "text_tokens": text_tokens,
-            "json_tokens": json_tokens,
-            "streaming_output": streaming_output,
-            "ndjson_output": ndjson_output,
-            "reconstructed_audio": reconstructed_audio,
-            "metrics": metrics,
-            "budget_metrics": budget_metrics,
-            "processing_time": total_time,
-            "original_audio": audio,
-            "tokenizer_result": result,
-            "metadata": {**self._metadata(file_path, sr, duration,
-                                          audio_hash),
-                         "processing_sample_rate": self.sample_rate,
-                         "device": self.device_spec},
-        }
+            # The reference's post-processing: DC removal, tanh soft limit.
+            reconstructed_audio = None
+            if recon is not None:
+                reconstructed_audio = np.tanh(
+                    (recon - np.mean(recon)) * 0.95) * 0.95
+            return {
+                "semantic_codes": semantic_codes,
+                "acoustic_codes": acoustic_codes,
+                "text_tokens": text_tokens,
+                "json_tokens": json_tokens,
+                "streaming_output": streaming_output,
+                "ndjson_output": ndjson_output,
+                "reconstructed_audio": reconstructed_audio,
+                "metrics": metrics,
+                "budget_metrics": budget_metrics,
+                "processing_time": total_time,
+                "original_audio": audio,
+                "tokenizer_result": result,
+                "metadata": {**self._metadata(file_path, sr, duration,
+                                              audio_hash),
+                             "processing_sample_rate": self.sample_rate,
+                             "device": self.device_spec},
+            }
 
     def _tokenize(self, audio: np.ndarray, sr: int, want_features: bool,
                   pcm16_hint=None):

@@ -7,29 +7,47 @@ stops: at :func:`stop_trace`, or at the process's exit.  torch.profiler's
 notices (``UserWarning``) at start and stop are not shown: default mode
 writes nothing to stderr.
 
-:func:`annotate` names a region three ways: a ``record_function`` range
-in that trace, an NVTX range on the card (for tools that read NVTX), and
-its wall time summed into :data:`stage_timings`.  The pipeline and the
-tokenizer use the reference's names (``nat/load_audio``, ``nat/tokenize``,
-``nat/dispatch``, ...).
+:func:`annotate` names a region two ways: its inclusive wall time summed
+into :data:`stage_timings` (under a lock: the daemon's batcher opens
+regions on other threads), and, while a profiler records, a
+``record_function`` range of the same name in its trace.  With no
+profiler running a region costs two clock reads and a locked add.  The
+pipeline and the tokenizer use the reference's names and a few of their
+own:
+
+- ``nat/file``, one input's whole path, the root; its children
+  ``nat/load_audio``, ``nat/sha256``, ``nat/begin`` (the stream's
+  header, codebook seeding), ``nat/tokenize``, ``nat/decode`` (the
+  reconstruction's whole-file decode, its copy back included),
+  ``nat/evaluate`` and ``nat/finish`` (the codes' concatenation, the
+  budget meter, the diversity check, the ``end`` event);
+- under ``nat/tokenize``: ``nat/pcm16_wire``, ``nat/stage`` (prepare,
+  stack, pad rows, start the upload), ``nat/dispatch``, ``nat/prefetch``,
+  ``nat/device_get``, ``nat/finalize`` (overlap discard, row slicing) and
+  the consumer's ``nat/serialize``;
+- under ``nat/evaluate``: ``nat/eval/spectral`` (waveform and STFT
+  distances), ``nat/eval/pitch``, ``nat/eval/rhythm``,
+  ``nat/eval/timbral`` and ``nat/eval/tokens`` (entropies, mutual
+  information, diversity, the closing memory probe).
 """
 
 from __future__ import annotations
 
 import atexit
-import contextlib
 import os
+import threading
 import time
 import warnings
-from typing import Dict, Iterator, Optional
+from typing import Dict, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from .logging import logger
 
 _active: Optional[tuple] = None     # (profiler, trace file)
-_nvtx: Optional[bool] = None        # NVTX ranges available (a CUDA build)
 stage_timings: Dict[str, float] = {}
+_timings_lock = threading.Lock()
 
 
 def maybe_start_trace_from_env() -> None:
@@ -83,24 +101,36 @@ def stop_trace() -> Optional[str]:
     return path
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named region: profiler range, NVTX range on a CUDA build, and its
-    wall time added to ``stage_timings[name]``."""
-    global _nvtx
-    if _nvtx is None:
-        _nvtx = torch.cuda.is_available()
-    start = time.perf_counter()
-    if _nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if _nvtx:
-            torch.cuda.nvtx.range_pop()
-        stage_timings[name] = stage_timings.get(name, 0.0) + (
-            time.perf_counter() - start)
+class _Region:
+    __slots__ = ("name", "_range", "_start")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    def __enter__(self) -> None:
+        self._start = time.perf_counter()
+        self._range = None
+        # Whether a profiler records, in any thread: the module flag is
+        # process-wide, where ``torch.autograd._profiler_enabled()`` reads
+        # False on threads other than the one that started the profiler.
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+
+    def __exit__(self, *exc) -> None:
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        elapsed = time.perf_counter() - self._start
+        with _timings_lock:
+            stage_timings[self.name] = (stage_timings.get(self.name, 0.0)
+                                        + elapsed)
+
+
+def annotate(name: str) -> _Region:
+    """A named region (``with annotate(name): ...``): its wall time added
+    to ``stage_timings[name]``, and a profiler range while a profiler
+    records."""
+    return _Region(name)
 
 
 def reset_timings() -> None:

@@ -296,7 +296,7 @@ def test_eager_first_captured_second_replayed_after(graphs_on):
     rvq_kernel.launches = 0
     ref = _forward(tok, wave)
     assert stats == dict(captures=0, replays=0, eager=1, failed=0,
-                         invalidations=0)
+                         invalidations=0, samples=2 * SR)
     assert rvq_kernel.launches == 0         # the plain chain launches none
     for sight in (2, 3):
         out = _forward(tok, wave)
@@ -662,7 +662,8 @@ def test_pipeline_regions_and_trace(tmp_path, monkeypatch, simple_wav):
         path = profiling.stop_trace()
     names = {"nat/load_audio", "nat/sha256", "nat/tokenize", "nat/serialize",
              "nat/evaluate", "nat/pcm16_wire", "nat/dispatch",
-             "nat/device_get"}
+             "nat/device_get", "nat/file", "nat/begin", "nat/stage",
+             "nat/finalize", "nat/finish", "nat/eval/tokens"}
     assert names <= set(profiling.stage_timings)
     assert path and os.path.dirname(path) == str(tmp_path / "trace")
     events = json.load(open(path))["traceEvents"]

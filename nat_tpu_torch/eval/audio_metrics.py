@@ -1,4 +1,5 @@
-"""Audio-quality metrics (host numpy; no librosa dependency), copied from
+"""Audio-quality metrics over :mod:`nat_tpu_torch.eval.librosa_compat`
+(torch, on the device of the signals), the port of
 ``nat_tpu/eval/audio_metrics.py``.
 
 Value-parity counterparts of reference TokenizationEvaluator internals
@@ -7,20 +8,174 @@ reference's code on identical inputs: linear-magnitude spectral MSE
 (:3470-3473), MFCC-MSE perceptual loss (:3481-3484), MR-STFT (:3527-3553),
 LSD (:3555-3575), piptrack dominant-pitch correlation (:3639-3673),
 onset-interval rhythm correlation (:3675-3711), and mean-MFCC cosine
-timbral similarity (:3713-3732).  The librosa calls those formulas make are
-served by :mod:`nat_tpu_torch.eval.librosa_compat` (librosa-0.10-faithful numpy).
-All functions operate on mono float arrays.
+timbral similarity (:3713-3732).
+
+:class:`Spectra` holds the signals of one evaluation and computes each
+``(signal, n_fft, hop)`` magnitude spectrogram, and each dB mel
+spectrogram, once for every metric that needs it; signals asked for
+together go through the FFT as one batch.  The per-signal parts
+(``_tracks``, ``_onset_masks``, ``_mfcc13_means``) stay on the device; the
+Pearson correlations and the cosine run on the fetched tracks, on the
+host.  The public functions take numpy arrays and return Python floats or
+numpy arrays, computing on the CPU.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from . import librosa_compat as lc
 
 _EPS = 1e-8
+_RESOLUTIONS = ((512, 128), (1024, 256), (2048, 512))
+
+
+class Spectra:
+    """Signals of one length and dtype on one device (the STFT frames
+    them in float64), with their magnitude spectrograms (each ``(signal,
+    n_fft, hop)`` once) and dB mel spectrograms (each signal once).
+    Signals asked for together go through the FFT and the mel product as
+    one batch."""
+
+    def __init__(self, signals: Dict[str, torch.Tensor],
+                 sample_rate: float) -> None:
+        self.signals = signals
+        self.sample_rate = sample_rate
+        self._mag: Dict[Tuple[str, int, int], torch.Tensor] = {}
+        self._db: Dict[str, torch.Tensor] = {}
+
+    @staticmethod
+    def _batch(names: Sequence[str], have: dict, key, make) -> torch.Tensor:
+        missing = [n for n in names if key(n) not in have]
+        if missing:
+            made = make(missing)
+            for k, n in enumerate(missing):
+                have[key(n)] = made[k]
+            if missing == list(names):
+                return made
+        return torch.stack([have[key(n)] for n in names])
+
+    def mag(self, names: Sequence[str], n_fft: int = 2048,
+            hop: int = 512) -> torch.Tensor:
+        """``[len(names), 1 + n_fft//2, frames]`` float32 magnitudes."""
+        return self._batch(
+            names, self._mag, lambda n: (n, n_fft, hop),
+            lambda todo: lc.stft_mag(
+                torch.stack([self.signals[n] for n in todo]), n_fft, hop))
+
+    def db_mel(self, names: Sequence[str]) -> torch.Tensor:
+        """``power_to_db(melspectrogram(x))`` with librosa's defaults
+        (2048/512, 128 mels), ``[len(names), 128, frames]``: what MFCCs and
+        the onset envelope share."""
+        return self._batch(
+            names, self._db, lambda n: n,
+            lambda todo: lc.db_spectrogram(
+                lc.mel_power(self.mag(todo), self.sample_rate)))
+
+
+_PAIR = ("o", "r")
+
+
+def _spectra(orig, recon, sample_rate: float = 0.0) -> Spectra:
+    """The pair cut to its common length, as float64 CPU tensors named
+    ``o`` and ``r`` (``_PAIR``)."""
+    n = min(np.size(orig), np.size(recon))
+
+    def cut(x):
+        return torch.from_numpy(
+            np.asarray(x).reshape(-1)[:n].astype(np.float64))
+
+    return Spectra({"o": cut(orig), "r": cut(recon)}, sample_rate)
+
+
+def _signal(x) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x, np.float64).reshape(-1))
+
+
+def _mean64(x: torch.Tensor) -> torch.Tensor:
+    return x.mean(dtype=torch.float64)
+
+
+def _spectral_mse(sp: Spectra, pair: Sequence[str], n_fft: int = 2048,
+                  hop: int = 512) -> torch.Tensor:
+    m = sp.mag(pair, n_fft, hop)
+    return _mean64((m[0] - m[1]) ** 2)
+
+
+def _mr_stft(sp: Spectra, pair: Sequence[str]) -> torch.Tensor:
+    total = 0.0
+    for n_fft, hop in _RESOLUTIONS:
+        m = sp.mag(pair, n_fft, hop)
+        log = (m + 1e-7).double().log()
+        total = (total + _mean64((m[0] - m[1]) ** 2)
+                 + _mean64((log[0] - log[1]) ** 2))
+    return total / len(_RESOLUTIONS)
+
+
+def _lsd(sp: Spectra, pair: Sequence[str], n_fft: int = 2048,
+         hop: int = 512) -> torch.Tensor:
+    m = sp.mag(pair, n_fft, hop)
+    log = (m * m + 1e-10).double().log10()
+    return _mean64((log[0] - log[1]) ** 2).sqrt()
+
+
+def _perceptual(sp: Spectra, pair: Sequence[str]) -> torch.Tensor:
+    m = lc.mfcc_from_db(sp.db_mel(pair), 20)
+    return ((m[0] - m[1]) ** 2).mean()
+
+
+def _tracks(sp: Spectra, names: Sequence[str]) -> torch.Tensor:
+    """Per-frame dominant pitch (Hz): the maximum entry of each piptrack
+    frame column — the reference's ``frame[frame.argmax()]`` (3650-3652)."""
+    pitches, _ = lc.piptrack_mag(sp.mag(names), sp.sample_rate)
+    return pitches.amax(-2)
+
+
+def _onset_masks(sp: Spectra, names: Sequence[str]) -> torch.Tensor:
+    """onset_detect's candidate frames before the ``wait`` filter."""
+    return lc.onset_candidates(lc.onset_envelope(sp.db_mel(names)),
+                               sp.sample_rate)
+
+
+def _onset_times(mask: np.ndarray, sample_rate: float,
+                 hop: int = 512) -> np.ndarray:
+    frames = lc.wait_filter(np.nonzero(mask)[0],
+                            lc.onset_wait(sample_rate, hop))
+    return frames * hop / sample_rate
+
+
+def _mfcc13_means(sp: Spectra, names: Sequence[str]) -> torch.Tensor:
+    return lc.mfcc_from_db(sp.db_mel(names), 13).mean(-1)
+
+
+def _correlation(a: np.ndarray, b: np.ndarray) -> float:
+    """Pearson correlation over the common length; 0.0 when it is under 2
+    or either sequence is constant or not finite."""
+    t = min(a.size, b.size)
+    if t < 2:
+        return 0.0
+    a, b = a[:t], b[:t]
+    if (np.std(a) == 0 or np.std(b) == 0
+            or not np.all(np.isfinite(a)) or not np.all(np.isfinite(b))):
+        return 0.0
+    corr = np.corrcoef(a, b)[0, 1]
+    return float(corr) if np.isfinite(corr) else 0.0
+
+
+def _rhythm(onsets_a: np.ndarray, onsets_b: np.ndarray) -> float:
+    """Correlation of inter-onset intervals; 0.0 with fewer than two
+    onsets on either side."""
+    if len(onsets_a) < 2 or len(onsets_b) < 2:
+        return 0.0
+    return _correlation(np.diff(onsets_a), np.diff(onsets_b))
+
+
+def _cosine(a: np.ndarray, b: np.ndarray) -> float:
+    sim = np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b) + _EPS)
+    return float(sim) if np.isfinite(sim) else 0.0
 
 
 def stft_mag(x: np.ndarray, n_fft: int, hop: int) -> np.ndarray:
@@ -29,20 +184,11 @@ def stft_mag(x: np.ndarray, n_fft: int, hop: int) -> np.ndarray:
     return lc.stft_mag(x, n_fft, hop)
 
 
-def _pair(orig: np.ndarray, recon: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    n = min(orig.size, recon.size)
-    return (np.asarray(orig).reshape(-1)[:n].astype(np.float64),
-            np.asarray(recon).reshape(-1)[:n].astype(np.float64))
-
-
 def spectral_mse(orig: np.ndarray, recon: np.ndarray,
                  n_fft: int = 2048, hop: int = 512) -> float:
     """MSE of *linear* STFT magnitudes — the reference's ``spectral_loss``
     (reference 3470-3473: ``np.mean((|stft(o)| - |stft(r)|)**2)``)."""
-    o, r = _pair(orig, recon)
-    so, sr_ = lc.stft_mag(o, n_fft, hop), lc.stft_mag(r, n_fft, hop)
-    t = min(so.shape[1], sr_.shape[1])
-    return float(np.mean((so[:, :t] - sr_[:, :t]) ** 2))
+    return float(_spectral_mse(_spectra(orig, recon), _PAIR, n_fft, hop))
 
 
 def spectral_l1(orig: np.ndarray, recon: np.ndarray,
@@ -50,76 +196,42 @@ def spectral_l1(orig: np.ndarray, recon: np.ndarray,
     """L1 distance between log-magnitude spectrograms (kept as an extra
     diagnostic; the evaluator's ``spectral_loss`` field uses
     :func:`spectral_mse` for reference parity)."""
-    o, r = _pair(orig, recon)
-    so, sr_ = lc.stft_mag(o, n_fft, hop), lc.stft_mag(r, n_fft, hop)
-    t = min(so.shape[1], sr_.shape[1])
-    return float(np.mean(np.abs(np.log(so[:, :t] + _EPS)
-                                - np.log(sr_[:, :t] + _EPS))))
+    log = (_spectra(orig, recon).mag(_PAIR, n_fft, hop) + _EPS).double().log()
+    return float(_mean64((log[0] - log[1]).abs()))
 
 
 def mr_stft_loss(orig: np.ndarray, recon: np.ndarray) -> float:
     """Multi-resolution STFT loss over (512,128)/(1024,256)/(2048,512):
     per scale, linear-magnitude MSE + log-magnitude (eps 1e-7) MSE,
     averaged over scales (reference 3527-3553)."""
-    o, r = _pair(orig, recon)
-    total = 0.0
-    resolutions = ((512, 128), (1024, 256), (2048, 512))
-    for n_fft, hop in resolutions:
-        so, sr_ = lc.stft_mag(o, n_fft, hop), lc.stft_mag(r, n_fft, hop)
-        t = min(so.shape[1], sr_.shape[1])
-        so, sr_ = so[:, :t], sr_[:, :t]
-        mag_loss = np.mean((so - sr_) ** 2)
-        log_loss = np.mean((np.log(so + 1e-7) - np.log(sr_ + 1e-7)) ** 2)
-        total += mag_loss + log_loss
-    return float(total / len(resolutions))
+    return float(_mr_stft(_spectra(orig, recon), _PAIR))
 
 
 def log_spectral_distance(orig: np.ndarray, recon: np.ndarray,
                           n_fft: int = 2048, hop: int = 512) -> float:
     """Global RMS of log10 power-spectrum differences (reference
     3555-3575: ``sqrt(mean((log10(P_o+1e-10) - log10(P_r+1e-10))**2))``)."""
-    o, r = _pair(orig, recon)
-    so, sr_ = lc.stft_mag(o, n_fft, hop), lc.stft_mag(r, n_fft, hop)
-    t = min(so.shape[1], sr_.shape[1])
-    diff = (np.log10(so[:, :t] ** 2 + 1e-10)
-            - np.log10(sr_[:, :t] ** 2 + 1e-10))
-    return float(np.sqrt(np.mean(diff ** 2)))
+    return float(_lsd(_spectra(orig, recon), _PAIR, n_fft, hop))
 
 
 def perceptual_loss(orig: np.ndarray, recon: np.ndarray,
                     sample_rate: int) -> float:
     """MSE of default-parameter MFCCs (n_mfcc=20) — the reference's
     perceptual proxy (3481-3484: ``np.mean((mfcc(o) - mfcc(r))**2)``)."""
-    o, r = _pair(orig, recon)
-    mo, mr = lc.mfcc(o, sample_rate), lc.mfcc(r, sample_rate)
-    t = min(mo.shape[1], mr.shape[1])
-    return float(np.mean((mo[:, :t] - mr[:, :t]) ** 2))
+    return float(_perceptual(_spectra(orig, recon, sample_rate), _PAIR))
 
 
 def dominant_pitch_track(x: np.ndarray, sample_rate: int) -> np.ndarray:
-    """Per-frame dominant pitch (Hz): the maximum entry of each piptrack
-    frame column — exactly the reference's ``frame[frame.argmax()]``
-    selection (3650-3652) over librosa.piptrack output."""
-    pitches, _ = lc.piptrack(np.asarray(x, np.float64), sample_rate)
-    return pitches.max(axis=0)
+    """Per-frame dominant pitch (Hz) over librosa.piptrack output."""
+    return _tracks(Spectra({"x": _signal(x)}, sample_rate), ("x",))[0].numpy()
 
 
 def pitch_accuracy(orig: np.ndarray, recon: np.ndarray,
                    sample_rate: int) -> float:
     """Pearson correlation of dominant-pitch tracks (reference 3639-3673:
     raw correlation; 0.0 on degenerate/constant/non-finite tracks)."""
-    o, r = _pair(orig, recon)
-    po = dominant_pitch_track(o, sample_rate)
-    pr = dominant_pitch_track(r, sample_rate)
-    t = min(po.size, pr.size)
-    if t < 2:
-        return 0.0
-    po, pr = po[:t], pr[:t]
-    if (np.std(po) == 0 or np.std(pr) == 0
-            or not np.all(np.isfinite(po)) or not np.all(np.isfinite(pr))):
-        return 0.0
-    corr = np.corrcoef(po, pr)[0, 1]
-    return float(corr) if np.isfinite(corr) else 0.0
+    tracks = _tracks(_spectra(orig, recon, sample_rate), _PAIR).numpy()
+    return _correlation(tracks[0], tracks[1])
 
 
 def onset_strength(x: np.ndarray, sample_rate: int,
@@ -138,21 +250,9 @@ def rhythm_accuracy(orig: np.ndarray, recon: np.ndarray,
     """Pearson correlation of inter-onset-interval sequences (reference
     3675-3711: onset times via onset_detect(units='time'), raw correlation,
     0.0 when onsets/intervals are too few or degenerate)."""
-    o, r = _pair(orig, recon)
-    oo = lc.onset_detect(o, sample_rate, units="time")
-    ro = lc.onset_detect(r, sample_rate, units="time")
-    if len(oo) < 2 or len(ro) < 2:
-        return 0.0
-    io, ir = np.diff(oo), np.diff(ro)
-    n = min(io.size, ir.size)
-    if n < 2:
-        return 0.0
-    io, ir = io[:n], ir[:n]
-    if (np.std(io) == 0 or np.std(ir) == 0
-            or not np.all(np.isfinite(io)) or not np.all(np.isfinite(ir))):
-        return 0.0
-    corr = np.corrcoef(io, ir)[0, 1]
-    return float(corr) if np.isfinite(corr) else 0.0
+    masks = _onset_masks(_spectra(orig, recon, sample_rate), _PAIR).numpy()
+    return _rhythm(_onset_times(masks[0], sample_rate),
+                   _onset_times(masks[1], sample_rate))
 
 
 def mfcc(x: np.ndarray, sample_rate: int, n_mfcc: int = 13) -> np.ndarray:
@@ -164,11 +264,8 @@ def timbral_similarity(orig: np.ndarray, recon: np.ndarray,
                        sample_rate: int) -> float:
     """Cosine similarity of time-averaged 13-MFCC vectors (reference
     3713-3732: raw cosine, eps 1e-8 in the denominator)."""
-    o, r = _pair(orig, recon)
-    mo = lc.mfcc(o, sample_rate, n_mfcc=13).mean(axis=1)
-    mr = lc.mfcc(r, sample_rate, n_mfcc=13).mean(axis=1)
-    sim = np.dot(mo, mr) / (np.linalg.norm(mo) * np.linalg.norm(mr) + _EPS)
-    return float(sim) if np.isfinite(sim) else 0.0
+    means = _mfcc13_means(_spectra(orig, recon, sample_rate), _PAIR).numpy()
+    return _cosine(means[0], means[1])
 
 
 def _mel_spec(x: np.ndarray, sample_rate: int, n_mels: int = 128,

@@ -1,6 +1,6 @@
-"""librosa-compatible DSP primitives (numpy only, librosa 0.10 semantics),
-copied from ``nat_tpu/eval/librosa_compat.py`` over the port's own
-:mod:`nat_tpu_torch.dsp.mel`.
+"""librosa-compatible DSP primitives in torch (librosa 0.10 semantics),
+over the port's own :mod:`nat_tpu_torch.dsp.mel`; the JAX package's
+``nat_tpu/eval/librosa_compat.py`` is the numpy original.
 
 The reference evaluator computes its metrics with librosa — spectral loss
 (reference neural_audio_tokenizer.py:3470-3473), MFCC perceptual loss
@@ -9,7 +9,8 @@ The reference evaluator computes its metrics with librosa — spectral loss
 ``--metrics`` output *value*-comparable with the reference tool, this module
 reimplements exactly the librosa call surface those formulas use:
 
-* ``stft_mag`` — centered STFT, periodic Hann, zero ("constant") padding;
+* ``stft``/``stft_mag`` — centered STFT, periodic Hann, zero ("constant")
+  padding;
 * ``mel_fb``/``melspectrogram`` — Slaney mel scale + Slaney area norm;
 * ``power_to_db`` — 10·log10 with ``amin=1e-10`` and 80 dB dynamic floor;
 * ``mfcc`` — DCT-II (ortho) of the dB mel spectrogram;
@@ -18,21 +19,63 @@ reimplements exactly the librosa call surface those formulas use:
 * ``onset_strength``/``onset_detect``/``peak_pick`` — spectral-flux novelty
   with librosa's moving max/average peak picker and its exact defaults.
 
-The JAX package's copy is validated against real librosa where librosa
-is importable; this copy is held to it value for value.  Versioning note:
-librosa changed the STFT ``pad_mode`` default from ``reflect`` to
-``constant`` in 0.10; the reference pins ``librosa>=0.9.0``, which
-resolves to ≥0.10 on any current install, so the ``constant`` semantics
-are used here.
+Every function runs on the device of its input tensor, so the evaluator
+runs it on the tokenizer's device.  Given numpy arrays instead, the same
+code runs on the CPU and hands back numpy arrays of the dtypes librosa
+gives.  The discontinuous steps (piptrack's local maxima, the peak
+picker's comparisons) see the values numpy's float32 arithmetic gives:
+magnitudes follow numpy's complex64 ``abs`` bit for bit, and the peak
+picker's moving average sums in numpy's order.
+
+Two float32 steps round differently in every library: the mel product
+(the BLAS's summation order) and log10 (numpy's SIMD ``log10f`` is not
+correctly rounded).  MFCCs cancel nearly to zero in places, where one ulp
+of a dB value moves a coefficient by far more than 1e-6 of itself.  On
+the CPU these two steps are numpy's own, so the host's numbers are the
+numpy original's bit for bit; on a card they are an IEEE float32 matmul
+(TF32 off) and a float64 log10 rounded once.  Versioning note: librosa
+changed the STFT ``pad_mode`` default from ``reflect`` to ``constant`` in
+0.10; the reference pins ``librosa>=0.9.0``, which resolves to ≥0.10 on
+any current install, so the ``constant`` semantics are used here.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
+from ..device import ieee_float32
 from ..dsp.mel import hz_to_mel, mel_to_hz
+
+# Samples of float64 frames per STFT block and signal (librosa's
+# MAX_MEM_BLOCK idea at a size a card likes): 4096 frames of n_fft=2048,
+# 64 MiB.  A signal's last block is rounded up to a power of two of frames,
+# so the FFT sees a few batch shapes whatever the signal's length.
+_BLOCK_SAMPLES = 1 << 23
+_MIN_TAIL_FRAMES = 16
+
+
+def _host_io(fn):
+    """Run ``fn`` on CPU tensors made from its numpy arguments and give
+    numpy back; tensors pass through on their own device."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if not any(isinstance(a, np.ndarray) for a in args):
+            return fn(*args, **kwargs)
+        out = fn(*(torch.from_numpy(np.ascontiguousarray(a))
+                   if isinstance(a, np.ndarray) else a for a in args),
+                 **kwargs)
+        if isinstance(out, tuple):
+            return tuple(o.numpy() for o in out)
+        return out.numpy()
+
+    return wrapper
 
 
 def _hann_periodic(n: int) -> np.ndarray:
@@ -40,70 +83,95 @@ def _hann_periodic(n: int) -> np.ndarray:
     return 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)
 
 
-def stft(y: np.ndarray, n_fft: int = 2048,
-         hop_length: Optional[int] = None,
-         center: bool = True) -> np.ndarray:
-    """Complex STFT ``[1 + n_fft//2, frames]``, librosa defaults.
+_device_consts: "dict" = {}
 
-    Matches librosa's numerics exactly: the window multiply and FFT run in
-    float64, and the result is stored complex64 (librosa pre-allocates the
-    output as ``util.dtype_r2c(y.dtype)`` and downcasts on store) — so
-    downstream magnitudes/mel/MFCC flow float32, like real librosa."""
-    hop = hop_length or n_fft // 4
-    y = np.asarray(y, dtype=np.float64).reshape(-1)
-    if center:
-        y = np.pad(y, (n_fft // 2, n_fft // 2))  # pad_mode="constant"
-    if y.size < n_fft:
-        y = np.pad(y, (0, n_fft - y.size))
-    n = (y.size - n_fft) // hop + 1
-    # Strided view instead of a fancy-index gather: the [n, n_fft] int64
-    # index array alone was ~200 MB at 300 s / n_fft=2048.  Values are
-    # bitwise identical — only the framing copy is avoided; the window
-    # multiply materializes the same float64 frames.
-    view = np.lib.stride_tricks.sliding_window_view(y, n_fft)[::hop][:n]
-    win = _hann_periodic(n_fft)[None, :]
-    # Blocked like librosa (MAX_MEM_BLOCK): the complex128 FFT result is
-    # downcast on assignment per block instead of materializing the full
-    # [n, n_fft] complex128 array (~200 MB at 300 s) and copying it again.
-    out = np.empty((n, n_fft // 2 + 1), dtype=np.complex64)
-    block = max(1, (1 << 18) // n_fft)
+
+def _on(device: torch.device, key: tuple, make) -> torch.Tensor:
+    """A host-built constant (window, filterbank, DCT) uploaded to
+    ``device`` once."""
+    full = (str(device),) + key
+    hit = _device_consts.get(full)
+    if hit is None:
+        hit = torch.from_numpy(np.ascontiguousarray(make())).to(device)
+        _device_consts[full] = hit
+    return hit
+
+
+def _magnitude(parts: torch.Tensor, out: torch.Tensor) -> None:
+    """``|z|`` into ``out`` for complex64 values given as their float32
+    ``[..., 2]`` parts, rounded as numpy's complex64 ``abs`` rounds it:
+    ``larger * sqrt(fma(r, r, 1))`` with ``r = smaller / larger`` (0 where
+    ``larger`` is), each step correctly rounded to float32.  ``r*r`` is
+    exact in float64 and ``1 + r*r`` lies in [1, 2], where float32's step
+    is 2**-23, so the fused multiply-add is a round-half-even to that grid;
+    the float64 square root of a float32 rounds to the float32 one
+    correctly."""
+    a = parts.abs()
+    larger = torch.maximum(a[..., 0], a[..., 1])
+    smaller = torch.minimum(a[..., 0], a[..., 1])
+    r = torch.nan_to_num(smaller / larger, nan=0.0).double()
+    fused = r.square().mul_(2.0 ** 23).round_().mul_(2.0 ** -23).add_(1.0)
+    torch.mul(fused.sqrt_().float(), larger, out=out)
+
+
+def _frames(y: torch.Tensor, n_fft: int, hop: int, center: bool):
+    """Float64 frames ``[..., rows, n_fft]`` of ``y`` ``[..., samples]``
+    (zero-padded: pad_mode="constant"), the number of real frames, and the
+    rows per block."""
+    left = n_fft // 2 if center else 0
+    length = y.shape[-1] + 2 * left
+    n = (max(length, n_fft) - n_fft) // hop + 1
+    block = max(1, _BLOCK_SAMPLES // n_fft)
+    tail = n % block
+    rows = n - tail
+    if tail:
+        rows += min(block, max(_MIN_TAIL_FRAMES, 1 << (tail - 1).bit_length()))
+    right = max(length, n_fft + (rows - 1) * hop) - y.shape[-1] - left
+    y = F.pad(y.to(torch.float64), (left, right))
+    return y.unfold(-1, n_fft, hop), n, block
+
+
+def _spectrum(y: torch.Tensor, n_fft: int, hop: int, center: bool,
+              magnitude: bool) -> torch.Tensor:
+    """The STFT as ``[..., frames, 1 + n_fft//2]``: complex64, or its
+    float32 magnitude.  The window multiply and FFT run in float64 and the
+    result is stored complex64, as librosa does (it pre-allocates
+    ``util.dtype_r2c(y.dtype)`` and downcasts on store), block by block."""
+    frames, n, block = _frames(y, n_fft, hop, center)
+    win = _on(frames.device, ("hann", n_fft), lambda: _hann_periodic(n_fft))
+    out = torch.empty(frames.shape[:-2] + (n, n_fft // 2 + 1),
+                      dtype=torch.float32 if magnitude else torch.complex64,
+                      device=frames.device)
     for lo in range(0, n, block):
-        hi = min(n, lo + block)
-        out[lo:hi] = np.fft.rfft(view[lo:hi] * win, axis=-1)
-    return out.T
+        keep = min(n - lo, block)
+        spec = torch.fft.rfft(frames[..., lo:lo + block, :] * win,
+                              dim=-1)[..., :keep, :]
+        if magnitude:
+            _magnitude(torch.view_as_real(spec.to(torch.complex64)),
+                       out[..., lo:lo + keep, :])
+        else:
+            out[..., lo:lo + keep, :] = spec
+    return out
 
 
-# stft_mag memo: one metric evaluation recomputes the SAME (2048, 512)
-# magnitude spectrogram of the same signal up to ~6 times (spectral MSE,
-# LSD, MFCC mel, onset mel, piptrack, MR-STFT's third scale).  Keyed by a
-# content digest (hashing 26 MB ≈ 10 ms vs ~400 ms per STFT); tiny FIFO
-# so long batch runs can't accumulate spectrograms.
-_stft_mag_cache: "dict" = {}
-_stft_mag_lock = None
+@_host_io
+def stft(y: torch.Tensor, n_fft: int = 2048,
+         hop_length: Optional[int] = None,
+         center: bool = True) -> torch.Tensor:
+    """Complex STFT ``[..., 1 + n_fft//2, frames]``, librosa defaults:
+    complex64 from a float64 window multiply and FFT."""
+    return _spectrum(y, n_fft, hop_length or n_fft // 4, center,
+                     False).transpose(-1, -2)
 
 
-def stft_mag(y: np.ndarray, n_fft: int = 2048,
+@_host_io
+def stft_mag(y: torch.Tensor, n_fft: int = 2048,
              hop_length: Optional[int] = None,
-             center: bool = True) -> np.ndarray:
-    import hashlib
-    import threading
-
-    global _stft_mag_lock
-    if _stft_mag_lock is None:
-        _stft_mag_lock = threading.Lock()
-    arr = np.ascontiguousarray(y)
-    key = (hashlib.sha1(arr.view(np.uint8).reshape(-1)).hexdigest(),
-           arr.shape, str(arr.dtype), n_fft, hop_length, center)
-    with _stft_mag_lock:
-        hit = _stft_mag_cache.get(key)
-    if hit is not None:
-        return hit
-    mag = np.abs(stft(arr, n_fft, hop_length, center))
-    with _stft_mag_lock:
-        if len(_stft_mag_cache) >= 8:
-            _stft_mag_cache.pop(next(iter(_stft_mag_cache)))
-        _stft_mag_cache[key] = mag
-    return mag
+             center: bool = True) -> torch.Tensor:
+    """``|stft(y)|`` as float32 ``[..., 1 + n_fft//2, frames]``; a batch of
+    signals ``[..., samples]`` goes through each FFT block together."""
+    return _spectrum(y, n_fft, hop_length or n_fft // 4, center,
+                     True).transpose(-1, -2)
 
 
 def fft_frequencies(sr: float, n_fft: int) -> np.ndarray:
@@ -117,10 +185,6 @@ def mel_fb(sr: float, n_fft: int, n_mels: int = 128, fmin: float = 0.0,
     float32 output like librosa's ``dtype=np.float32`` default — keeps the
     mel matmul in float32 instead of promoting the spectrogram)."""
     fmax = fmax if fmax is not None else sr / 2.0
-    key = (float(sr), int(n_fft), int(n_mels), float(fmin), float(fmax))
-    hit = _mel_fb_cache.get(key)
-    if hit is not None:
-        return hit
     freqs = fft_frequencies(sr, n_fft)
     m_pts = np.linspace(hz_to_mel(fmin, "slaney"), hz_to_mel(fmax, "slaney"),
                         n_mels + 2)
@@ -131,109 +195,224 @@ def mel_fb(sr: float, n_fft: int, n_mels: int = 128, fmin: float = 0.0,
     upper = ramps[2:] / fdiff[1:, None]
     fb = np.maximum(0.0, np.minimum(lower, upper))
     enorm = 2.0 / (f_pts[2:n_mels + 2] - f_pts[:n_mels])
-    out = (fb * enorm[:, None]).astype(np.float32)
-    if len(_mel_fb_cache) < 16:
-        _mel_fb_cache[key] = out
-    return out
+    return (fb * enorm[:, None]).astype(np.float32)
 
 
-_mel_fb_cache: "dict" = {}
+def mel_power(mag: torch.Tensor, sr: float, n_mels: int = 128,
+              power: float = 2.0) -> torch.Tensor:
+    """Mel spectrogram ``[..., n_mels, frames]`` of magnitude spectrograms
+    ``[..., 1 + n_fft//2, frames]``: a float32 matmul (TF32 off)."""
+    n_fft = 2 * (mag.shape[-2] - 1)
+    fb = _on(mag.device, ("mel", float(sr), n_fft, n_mels),
+             lambda: mel_fb(sr, n_fft, n_mels))
+    s = mag * mag if power == 2.0 else mag ** power
+    if s.device.type == "cpu":
+        return torch.from_numpy(fb.numpy() @ s.numpy())
+    with ieee_float32():
+        return fb @ s
 
 
-def melspectrogram(y: np.ndarray, sr: float, n_fft: int = 2048,
+@_host_io
+def melspectrogram(y: torch.Tensor, sr: float, n_fft: int = 2048,
                    hop_length: int = 512, n_mels: int = 128,
-                   power: float = 2.0) -> np.ndarray:
-    s = stft_mag(y, n_fft, hop_length) ** power
-    return mel_fb(sr, n_fft, n_mels) @ s
+                   power: float = 2.0) -> torch.Tensor:
+    return mel_power(stft_mag(y, n_fft, hop_length), sr, n_mels, power)
 
 
-def power_to_db(s: np.ndarray, ref: float = 1.0, amin: float = 1e-10,
-                top_db: Optional[float] = 80.0) -> np.ndarray:
-    log_spec = 10.0 * np.log10(np.maximum(amin, s))
-    log_spec -= 10.0 * np.log10(np.maximum(amin, ref))
+def _log_power(s: torch.Tensor, ref: float, amin: float) -> torch.Tensor:
+    floor = torch.clamp(s, min=amin)
+    if s.device.type == "cpu":
+        log10 = torch.from_numpy(np.log10(floor.numpy()))
+    else:
+        log10 = torch.log10(floor.double()).to(s.dtype)
+    return 10.0 * log10 - 10.0 * math.log10(max(amin, ref))
+
+
+@_host_io
+def power_to_db(s: torch.Tensor, ref: float = 1.0, amin: float = 1e-10,
+                top_db: Optional[float] = 80.0) -> torch.Tensor:
+    log_spec = _log_power(s, ref, amin)
     if top_db is not None:
-        log_spec = np.maximum(log_spec, log_spec.max() - top_db)
+        log_spec = torch.maximum(log_spec, log_spec.max() - top_db)
     return log_spec
 
 
-def mfcc(y: np.ndarray, sr: float, n_mfcc: int = 20,
-         n_mels: int = 128, n_fft: int = 2048,
-         hop_length: int = 512) -> np.ndarray:
-    """MFCCs ``[n_mfcc, frames]`` — librosa.feature.mfcc defaults
-    (dB mel spectrogram → orthonormal DCT-II along the mel axis)."""
-    logmel = power_to_db(melspectrogram(y, sr, n_fft, hop_length, n_mels))
-    n = logmel.shape[0]
+def db_spectrogram(s: torch.Tensor, top_db: float = 80.0) -> torch.Tensor:
+    """``power_to_db`` of each spectrogram of a batch ``[..., bands,
+    frames]``, its floor ``top_db`` under that spectrogram's own peak."""
+    log_spec = _log_power(s, 1.0, 1e-10)
+    return torch.maximum(log_spec,
+                         log_spec.amax((-2, -1), keepdim=True) - top_db)
+
+
+def _dct(n_mfcc: int, n: int) -> np.ndarray:
+    """Orthonormal DCT-II rows ``[n_mfcc, n]``; row k does not depend on
+    ``n_mfcc``."""
     k = np.arange(n_mfcc)[:, None]
     m = np.arange(n)[None, :]
     dct = np.cos(np.pi * k * (2 * m + 1) / (2 * n)) * np.sqrt(2.0 / n)
     dct[0] /= np.sqrt(2.0)
-    return dct @ logmel
+    return dct
 
 
-def _localmax(x: np.ndarray) -> np.ndarray:
-    """librosa.util.localmax along axis 0: strictly greater than the previous
-    element, greater-or-equal to the next (edge-padded)."""
-    xp = np.pad(x, ((1, 1), (0, 0)), mode="edge")
-    return (x > xp[:-2]) & (x >= xp[2:])
+def mfcc_from_db(logmel: torch.Tensor, n_mfcc: int = 20) -> torch.Tensor:
+    """MFCCs ``[..., n_mfcc, frames]`` of dB mel spectrograms (float64, as
+    numpy's float64 DCT times a float32 spectrogram gives)."""
+    n = logmel.shape[-2]
+    dct = _on(logmel.device, ("dct", n_mfcc, n), lambda: _dct(n_mfcc, n))
+    return dct @ logmel.double()
 
 
-def piptrack(y: np.ndarray, sr: float, n_fft: int = 2048,
-             hop_length: Optional[int] = None, fmin: float = 150.0,
-             fmax: float = 4000.0,
-             threshold: float = 0.1) -> Tuple[np.ndarray, np.ndarray]:
-    """Pitch tracking on thresholded parabolically-interpolated STFT peaks
-    (librosa.piptrack defaults).  Returns ``(pitches, mags)`` of shape
-    ``[1 + n_fft//2, frames]`` — nonzero where a peak was found."""
-    s = stft_mag(y, n_fft, hop_length)
+@_host_io
+def mfcc(y: torch.Tensor, sr: float, n_mfcc: int = 20,
+         n_mels: int = 128, n_fft: int = 2048,
+         hop_length: int = 512) -> torch.Tensor:
+    """MFCCs ``[n_mfcc, frames]`` — librosa.feature.mfcc defaults
+    (dB mel spectrogram → orthonormal DCT-II along the mel axis)."""
+    return mfcc_from_db(
+        power_to_db(melspectrogram(y, sr, n_fft, hop_length, n_mels)), n_mfcc)
+
+
+def _localmax(x: torch.Tensor) -> torch.Tensor:
+    """librosa.util.localmax along the frequency axis (-2): strictly
+    greater than the previous element, greater-or-equal to the next
+    (edge-padded)."""
+    xp = torch.cat([x[..., :1, :], x, x[..., -1:, :]], dim=-2)
+    return (x > xp[..., :-2, :]) & (x >= xp[..., 2:, :])
+
+
+def piptrack_mag(s: torch.Tensor, sr: float, fmin: float = 150.0,
+                 fmax: float = 4000.0, threshold: float = 0.1
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``piptrack`` of float32 magnitude spectrograms ``[..., 1 +
+    n_fft//2, frames]``: float32 elementwise steps as numpy takes them, the
+    bin frequencies in float64."""
+    n_fft = 2 * (s.shape[-2] - 1)
     fmin = max(fmin, 0.0)
     fmax = min(fmax, sr / 2.0)
-    freqs = fft_frequencies(sr, n_fft)
+    freqs = _on(s.device, ("freqs", float(sr), n_fft),
+                lambda: fft_frequencies(sr, n_fft))
 
-    avg = 0.5 * (s[2:] - s[:-2])
-    shift_den = 2 * s[1:-1] - s[2:] - s[:-2]
-    tiny = np.finfo(s.dtype).tiny
-    shift = avg / (shift_den + (np.abs(shift_den) < tiny))
-    avg = np.pad(avg, ((1, 1), (0, 0)))
-    shift = np.pad(shift, ((1, 1), (0, 0)))
+    lo, mid, hi = s[..., :-2, :], s[..., 1:-1, :], s[..., 2:, :]
+    avg = 0.5 * (hi - lo)
+    shift_den = 2 * mid - hi - lo
+    tiny = torch.finfo(s.dtype).tiny
+    shift = avg / (shift_den + (shift_den.abs() < tiny).to(s.dtype))
+    avg = F.pad(avg, (0, 0, 1, 1))
+    shift = F.pad(shift, (0, 0, 1, 1))
     dskew = 0.5 * avg * shift
 
     freq_mask = ((fmin <= freqs) & (freqs < fmax))[:, None]
-    ref_value = threshold * s.max(axis=0, keepdims=True)
-    idx = np.nonzero(freq_mask & _localmax(s * (s > ref_value)))
-    pitches = np.zeros_like(s)
-    mags = np.zeros_like(s)
-    pitches[idx] = (idx[0] + shift[idx]) * sr / n_fft
-    mags[idx] = s[idx] + dskew[idx]
-    return pitches, mags
+    ref_value = threshold * s.amax(-2, keepdim=True)
+    peak = freq_mask & _localmax(torch.where(s > ref_value, s, 0.0))
+    bins = _on(s.device, ("bins", n_fft),
+               lambda: np.arange(n_fft // 2 + 1, dtype=np.float64)[:, None])
+    pitch = ((bins + shift.double()) * sr / n_fft).float()
+    zero = torch.zeros((), dtype=s.dtype, device=s.device)
+    return (torch.where(peak, pitch, zero),
+            torch.where(peak, s + dskew, zero))
 
 
-def onset_strength(y: np.ndarray, sr: float,
+@_host_io
+def piptrack(y: torch.Tensor, sr: float, n_fft: int = 2048,
+             hop_length: Optional[int] = None, fmin: float = 150.0,
+             fmax: float = 4000.0,
+             threshold: float = 0.1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pitch tracking on thresholded parabolically-interpolated STFT peaks
+    (librosa.piptrack defaults).  Returns ``(pitches, mags)`` of shape
+    ``[1 + n_fft//2, frames]`` — nonzero where a peak was found."""
+    return piptrack_mag(stft_mag(y, n_fft, hop_length), sr, fmin, fmax,
+                        threshold)
+
+
+def onset_envelope(db: torch.Tensor, n_fft: int = 2048, hop_length: int = 512,
+                   lag: int = 1) -> torch.Tensor:
+    """Spectral-flux novelty of dB mel spectrograms ``[..., bands,
+    frames]``: rectified lag difference, mean over mel bands, left-padded
+    by ``lag + n_fft // (2*hop)`` to compensate centering."""
+    env = torch.clamp(db[..., lag:] - db[..., :-lag], min=0.0).mean(-2)
+    env = F.pad(env, (lag + n_fft // (2 * hop_length), 0))
+    return env[..., :db.shape[-1]]
+
+
+@_host_io
+def onset_strength(y: torch.Tensor, sr: float,
                    hop_length: int = 512, n_fft: int = 2048,
-                   n_mels: int = 128, lag: int = 1) -> np.ndarray:
+                   n_mels: int = 128, lag: int = 1) -> torch.Tensor:
     """Spectral-flux novelty curve (librosa.onset.onset_strength defaults):
     dB mel spectrogram, rectified lag-1 difference, mean over mel bands,
     left-padded by ``lag + n_fft // (2*hop)`` to compensate centering."""
-    s = power_to_db(melspectrogram(y, sr, n_fft, hop_length, n_mels))
-    env = np.maximum(0.0, s[:, lag:] - s[:, :-lag]).mean(axis=0)
-    pad = lag + n_fft // (2 * hop_length)
-    env = np.pad(env, (pad, 0))
-    return env[:s.shape[1]]
+    return onset_envelope(
+        power_to_db(melspectrogram(y, sr, n_fft, hop_length, n_mels)),
+        n_fft, hop_length, lag)
 
 
-def peak_pick(x: np.ndarray, pre_max: int, post_max: int, pre_avg: int,
-              post_avg: int, delta: float, wait: int) -> np.ndarray:
-    """librosa.util.peak_pick: candidate peaks equal the boundary-truncated
-    moving max, exceed the truncated moving average by ``delta``, and are at
-    least ``wait`` frames apart."""
-    n = x.size
-    mov_max = np.empty(n)
-    mov_avg = np.empty(n)
-    for i in range(n):
-        lo_m, hi_m = max(0, i - pre_max), min(n, i + post_max)
-        lo_a, hi_a = max(0, i - pre_avg), min(n, i + post_avg)
-        mov_max[i] = x[lo_m:hi_m].max() if hi_m > lo_m else x[i]
-        mov_avg[i] = x[lo_a:hi_a].mean() if hi_a > lo_a else x[i]
-    candidates = np.nonzero((x == mov_max) & (x >= mov_avg + delta))[0]
+def _windows(x: torch.Tensor, pre: int, post: int, fill: float):
+    """Boundary-truncated windows ``x[..., max(0, i-pre) : min(n, i+post)]``
+    of ``x`` ``[..., n]``, left-aligned in rows of ``pre + post``
+    (``fill`` beyond), and their lengths ``[n]``."""
+    n = x.shape[-1]
+    i = torch.arange(n, device=x.device)
+    lo = torch.clamp(i - pre, min=0)
+    length = torch.clamp(torch.clamp(i + post, max=n) - lo, min=0)
+    col = torch.arange(max(pre + post, 1), device=x.device)
+    inside = col < length[:, None]
+    idx = torch.where(inside, lo[:, None] + col, 0)
+    rows = torch.where(inside, x[..., idx],
+                       torch.full((), fill, dtype=x.dtype, device=x.device))
+    return rows, length
+
+
+def _numpy_sum(a: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """Row sums of ``a`` ``[..., n, w]`` over the first ``length[i]``
+    columns (zeros beyond), added in the order numpy's pairwise float sum
+    adds a contiguous run of up to 128 elements: one by one below 8, else
+    eight strided partial sums joined as a tree, then the rest one by one.
+    Adding the zeros beyond a row's length changes no bit."""
+    w = a.shape[-1]
+    if w > 128:
+        raise ValueError(f"moving window of {w} frames exceeds 128")
+    seq = a[..., 0]
+    for c in range(1, min(w, 8)):
+        seq = seq + a[..., c]
+    if w < 8:
+        return seq
+    col = torch.arange(w, device=a.device)
+    whole = (length - length % 8)[:, None]
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    head = F.pad(torch.where(col < whole, a, zero), (0, -w % 8))
+    head = head.reshape(head.shape[:-1] + (-1, 8))
+    r = head[..., 0, :]
+    for k in range(1, head.shape[-2]):
+        r = r + head[..., k, :]
+    tree = ((r[..., 0] + r[..., 1]) + (r[..., 2] + r[..., 3])) \
+        + ((r[..., 4] + r[..., 5]) + (r[..., 6] + r[..., 7]))
+    rest = torch.where((col >= whole) & (col < length[:, None]), a, zero)
+    for c in range(8, w):
+        tree = tree + rest[..., c]
+    return torch.where(length < 8, seq, tree)
+
+
+def peak_candidates(x: torch.Tensor, pre_max: int, post_max: int,
+                    pre_avg: int, post_avg: int,
+                    delta: float) -> torch.Tensor:
+    """librosa.util.peak_pick's candidates as a mask over ``x`` ``[...,
+    n]``: ``x`` equals its boundary-truncated moving max and exceeds its
+    truncated moving average by ``delta``.  The average is numpy's float32
+    mean, compared in float64."""
+    if x.shape[-1] == 0:
+        return torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    rows, length = _windows(x, pre_max, post_max, -math.inf)
+    mov_max = torch.where(length > 0, rows.amax(-1), x)
+    rows, length = _windows(x, pre_avg, post_avg, 0.0)
+    mov_avg = torch.where(length > 0,
+                          _numpy_sum(rows, length) / length.to(x.dtype), x)
+    return (x == mov_max) & (x.double() >= mov_avg.double() + delta)
+
+
+def wait_filter(candidates: np.ndarray, wait: int) -> np.ndarray:
+    """Keep candidate frames at least ``wait`` frames apart, greedily from
+    the first (sequential, on the host; a few per second of audio)."""
     peaks = []
     last = -np.inf
     for i in candidates:
@@ -243,25 +422,46 @@ def peak_pick(x: np.ndarray, pre_max: int, post_max: int, pre_avg: int,
     return np.asarray(peaks, dtype=int)
 
 
-def onset_detect(y: np.ndarray, sr: float, hop_length: int = 512,
+def peak_pick(x, pre_max: int, post_max: int, pre_avg: int,
+              post_avg: int, delta: float, wait: int) -> np.ndarray:
+    """librosa.util.peak_pick: candidate peaks equal the boundary-truncated
+    moving max, exceed the truncated moving average by ``delta``, and are at
+    least ``wait`` frames apart."""
+    mask = peak_candidates(torch.as_tensor(x), pre_max, post_max, pre_avg,
+                           post_avg, delta)
+    return wait_filter(np.nonzero(mask.cpu().numpy())[0], wait)
+
+
+def onset_candidates(env: torch.Tensor, sr: float,
+                     hop_length: int = 512) -> torch.Tensor:
+    """onset_detect before its ``wait`` filter, as a mask over the frames
+    of envelopes ``[..., frames]``: each normalized to [0, 1], then peak
+    candidates with librosa's 30 ms / 100 ms windows; all False where an
+    envelope is all zero or not finite."""
+    ok = env.any(-1, keepdim=True) & torch.isfinite(env).all(-1, keepdim=True)
+    env = env - env.amin(-1, keepdim=True)
+    top = env.amax(-1, keepdim=True)
+    env = torch.where(top > 0, env / torch.where(top > 0, top, 1.0), env)
+    return ok & peak_candidates(
+        env, pre_max=int(0.03 * sr // hop_length),
+        post_max=int(0.00 * sr // hop_length + 1),
+        pre_avg=int(0.10 * sr // hop_length),
+        post_avg=int(0.10 * sr // hop_length + 1), delta=0.07)
+
+
+def onset_wait(sr: float, hop_length: int = 512) -> int:
+    """onset_detect's ``wait``: 30 ms in frames."""
+    return int(0.03 * sr // hop_length)
+
+
+def onset_detect(y, sr: float, hop_length: int = 512,
                  units: str = "frames") -> np.ndarray:
     """librosa.onset.onset_detect defaults: normalized onset envelope,
     peak picking with the documented 30 ms / 100 ms window defaults."""
-    env = onset_strength(y, sr, hop_length)
-    if not env.any() or not np.all(np.isfinite(env)):
-        onsets = np.array([], dtype=int)
-    else:
-        env = env - env.min()
-        if env.max() > 0:
-            env = env / env.max()
-        onsets = peak_pick(
-            env,
-            pre_max=int(0.03 * sr // hop_length),
-            post_max=int(0.00 * sr // hop_length + 1),
-            pre_avg=int(0.10 * sr // hop_length),
-            post_avg=int(0.10 * sr // hop_length + 1),
-            delta=0.07,
-            wait=int(0.03 * sr // hop_length))
+    mask = onset_candidates(onset_strength(torch.as_tensor(y), sr,
+                                           hop_length), sr, hop_length)
+    onsets = wait_filter(np.nonzero(mask.cpu().numpy())[0],
+                         onset_wait(sr, hop_length))
     if units == "time":
         return onsets * hop_length / sr
     return onsets

@@ -4,19 +4,24 @@ entropy in nats, mutual information over all semantic against all acoustic
 tokens with adaptive binning, and grouped token diversity.
 
 Given a reconstruction, the evaluator adds the reconstruction metrics of
-:mod:`nat_tpu_torch.eval.audio_metrics` on the host, split as in the
-reference: the DC offset is removed from the reconstruction before MSE,
-spectral, MR-STFT, LSD and perceptual losses over the common length; pitch,
-rhythm and timbre compare the raw, unaligned signals.  Without one they
-stay 0.0, as in the reference's ``--no-reconstruction`` runs.
+:mod:`nat_tpu_torch.eval.audio_metrics`, split as in the reference: the DC
+offset is removed from the reconstruction before MSE, spectral, MR-STFT,
+LSD and perceptual losses over the common length; pitch, rhythm and timbre
+compare the raw signals cut to that length.  Without one they stay 0.0,
+as in the reference's ``--no-reconstruction`` runs.  They run in one torch
+pass on the device of the tokenizer the evaluator is handed (the CPU
+without one): both signals go up once, each spectrogram is computed once,
+and only scalars and per-frame tracks come back.
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..utils.memory import get_memory_usage_mb
 from ..utils.profiling import annotate
@@ -127,11 +132,12 @@ class TokenizationEvaluator:
         ratio (streaming callers evaluate after trimming their buffers).
         The reconstruction's parts run in regions of their own,
         ``nat/eval/spectral``, ``nat/eval/pitch``, ``nat/eval/rhythm`` and
-        ``nat/eval/timbral``, then the token statistics in
-        ``nat/eval/tokens``; the memory probe that opens the evaluation
-        lies in none of them."""
+        ``nat/eval/timbral`` (on a card after ``nat/eval/upload``), then the
+        token statistics in ``nat/eval/tokens``; the memory probe that
+        opens the evaluation lies in none of them."""
         initial_memory = get_memory_usage_mb()
-        recon = (self._reconstruction_metrics(audio, reconstructed)
+        recon = (self._reconstruction_metrics(audio, reconstructed,
+                                              self.device_of(tokenizer))
                  if reconstructed is not None else {})
         with annotate("nat/eval/tokens"):
             result = precomputed_result or {}
@@ -172,38 +178,59 @@ class TokenizationEvaluator:
                 memory_usage=max(final_memory - initial_memory, 0.0),
             )
 
+    @staticmethod
+    def device_of(tokenizer) -> torch.device:
+        """Where the reconstruction metrics run: the tokenizer's device,
+        the CPU without one (or for one that has no device)."""
+        device = getattr(tokenizer, "device", None)
+        return torch.device("cpu" if device is None else device)
+
     def _reconstruction_metrics(self, audio: np.ndarray,
-                                reconstructed: np.ndarray
+                                reconstructed: np.ndarray,
+                                device: torch.device = torch.device("cpu")
                                 ) -> Dict[str, float]:
         """The eight reconstruction fields (``nat_tpu/eval/metrics.py``
-        145-172); all 0.0 when either signal is empty."""
-        from . import audio_metrics
+        145-172); all 0.0 when either signal is empty.  Each region ends
+        with the fetch of its results, so its time holds its device work;
+        a spectrogram two regions share is paid in the first."""
+        from . import audio_metrics as am
 
         sr = self.sample_rate
+        recon_host = np.asarray(reconstructed, dtype=np.float32).reshape(-1)
+        orig_host = np.asarray(audio, dtype=np.float32).reshape(-1)
+        n = min(recon_host.size, orig_host.size)
+        if n == 0:
+            return {}
+        with (annotate("nat/eval/upload") if device.type == "cuda"
+              else nullcontext()):
+            orig_full = torch.from_numpy(orig_host).to(device)
+            recon_raw = torch.from_numpy(recon_host).to(device)
         with annotate("nat/eval/spectral"):
-            recon_raw = np.asarray(reconstructed, dtype=np.float32).reshape(-1)
-            orig_full = np.asarray(audio, dtype=np.float32).reshape(-1)
-            recon = recon_raw - np.mean(recon_raw)
-            n = min(recon.size, orig_full.size)
-            if n == 0:
-                return {}
-            recon, orig = recon[:n], orig_full[:n]
-            out = {
-                "mse_loss": float(np.mean((recon - orig) ** 2)),
-                "spectral_loss": audio_metrics.spectral_mse(orig, recon),
-                "mr_stft_loss": audio_metrics.mr_stft_loss(orig, recon),
-                "log_spectral_distance": audio_metrics.log_spectral_distance(
-                    orig, recon),
-                "perceptual_loss": audio_metrics.perceptual_loss(orig, recon,
-                                                                 sr),
-            }
+            recon = recon_raw - recon_raw.mean(dtype=torch.float64).float()
+            orig = orig_full[:n]
+            sp = am.Spectra({"o": orig, "d": recon[:n],
+                             "r": recon_raw[:n]}, sr)
+            diff = recon[:n] - orig
+            pair = ("o", "d")
+            values = torch.stack([
+                (diff * diff).mean(dtype=torch.float64),
+                am._spectral_mse(sp, pair),
+                am._mr_stft(sp, pair),
+                am._lsd(sp, pair),
+                am._perceptual(sp, pair),
+            ]).tolist()
+            out = dict(zip(("mse_loss", "spectral_loss", "mr_stft_loss",
+                            "log_spectral_distance", "perceptual_loss"),
+                           values))
+        raw = ("o", "r")
         with annotate("nat/eval/pitch"):
-            out["pitch_accuracy"] = audio_metrics.pitch_accuracy(
-                orig_full, recon_raw, sr)
+            tracks = am._tracks(sp, raw).cpu().numpy()
+            out["pitch_accuracy"] = am._correlation(tracks[0], tracks[1])
         with annotate("nat/eval/rhythm"):
-            out["rhythm_accuracy"] = audio_metrics.rhythm_accuracy(
-                orig_full, recon_raw, sr)
+            masks = am._onset_masks(sp, raw).cpu().numpy()
+            out["rhythm_accuracy"] = am._rhythm(
+                am._onset_times(masks[0], sr), am._onset_times(masks[1], sr))
         with annotate("nat/eval/timbral"):
-            out["timbral_similarity"] = audio_metrics.timbral_similarity(
-                orig_full, recon_raw, sr)
+            means = am._mfcc13_means(sp, raw).cpu().numpy()
+            out["timbral_similarity"] = am._cosine(means[0], means[1])
         return out

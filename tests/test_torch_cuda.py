@@ -22,7 +22,8 @@ card returns the host's table bit for bit, and a PCM16 signal's spans give
 the same codes on the wire and as float32.  CUDA-graph replays of the
 forward give the eager forward's bits, in argmin and stochastic mode, and
 follow codebooks replaced after the capture; K2 with its seed in device
-memory gives the by-value entry's bits.
+memory gives the by-value entry's bits.  The reconstruction metric suite
+on the card is held to the same code on the CPU.
 Near-tie budget 2% (layer 0 exact in argmin mode), as in
 tests/test_torch_rvq.py.
 """
@@ -504,6 +505,72 @@ def test_decode_tokens_on_card_matches_cpu(card):
     ref = cpu.decode_tokens(sem, acc)
     assert out.shape == ref.shape == (1, 300 * 512)
     np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
+
+
+def _gliding_tone(seed: int, seconds: float, sr: int = 22050) -> np.ndarray:
+    """A tone gliding 220-580 Hz every 2 s, with noise and a burst every
+    0.22 s (pitch and onsets that the music metrics can follow)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    f = 220.0 + 180.0 * (t % 2.0)
+    x = 0.4 * np.sin(2 * np.pi * np.cumsum(f) / sr)
+    x += 0.02 * rng.standard_normal(t.size)
+    for at in range(int(0.1 * sr), t.size - 400, int(0.22 * sr)):
+        x[at:at + 400] += 0.6 * rng.standard_normal(400)
+    return x.astype(np.float32)
+
+
+def test_metric_suite_on_card_matches_cpu(card):
+    """The reconstruction metrics of a 60 s pair (the reconstruction 300
+    samples shorter, with DC) on the card against the same code on the
+    CPU: the eight fields within 1e-6 relative, the dominant-pitch tracks
+    and onset candidates equal, the float32 magnitudes numpy's ``abs`` of
+    the card's complex64 bit for bit, and the mel product IEEE float32
+    with TF32 switched on around it."""
+    from nat_tpu_torch.eval import audio_metrics as am
+    from nat_tpu_torch.eval import librosa_compat as lc
+    from nat_tpu_torch.eval.metrics import TokenizationEvaluator
+
+    sr = 22050
+    a = _gliding_tone(0, 60.0)
+    recon = ((0.8 * a + 0.2 * _gliding_tone(1, 60.0))[:-300]
+             + 0.05).astype(np.float32)
+    ev = TokenizationEvaluator(sr)
+    on_card = ev._reconstruction_metrics(a, recon, card)
+    on_cpu = ev._reconstruction_metrics(a, recon, torch.device("cpu"))
+    assert list(on_card) == list(on_cpu)
+    for key, value in on_cpu.items():
+        assert on_card[key] == pytest.approx(value, rel=1e-6, abs=0), key
+        assert value != 0.0, key
+
+    n = recon.size
+    signals = {"o": a[:n], "r": recon}
+    spectra = [am.Spectra({k: torch.from_numpy(v).double().to(dev)
+                           for k, v in signals.items()}, sr)
+               for dev in (card, torch.device("cpu"))]
+    tracks = [am._tracks(sp, ("o", "r")).cpu() for sp in spectra]
+    assert torch.equal(*tracks)
+    masks = [am._onset_masks(sp, ("o", "r")).cpu() for sp in spectra]
+    assert torch.equal(*masks)
+    assert (masks[0].sum(-1) > 100).all()
+    sp = spectra[0]
+    for n_fft, hop in ((512, 128), (1024, 256), (2048, 512)):
+        z = lc.stft(sp.signals["o"], n_fft, hop).cpu().numpy()
+        mag = sp.mag(("o",), n_fft, hop)[0].cpu().numpy()
+        assert mag.dtype == np.float32
+        assert np.array_equal(np.abs(z), mag), (n_fft, hop)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    mag = sp.mag(("o",))[0]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with_tf32_on = lc.mel_power(mag, sr)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    fb = torch.from_numpy(lc.mel_fb(sr, 2048)).double().to(card)
+    exact = fb @ (mag.double() ** 2)
+    err = ((with_tf32_on.double() - exact).abs() / exact.clamp(min=1e-30))
+    assert err.max().item() < 1e-5      # TF32's 10-bit mantissa: ~1e-3
 
 
 @pytest.mark.parametrize("t,new_t", [(1500, 81), (12911, 12911 * 512)])

@@ -2,13 +2,15 @@
 float32: ``decode_tokens``, the host metric suite (``audio_metrics`` and
 ``librosa_compat``), the evaluator's eight reconstruction fields, the
 ``end`` event of a stream with reconstruction on, the buffered
-``process_audio`` outputs, and checkpoints without a decoder.
+``process_audio`` outputs, and checkpoints without a decoder; then what
+one evaluation computes and where.
 
 Sizes are tiny (spectral semantic encoder, dims 32, codebook 64, 16 mels).
-Tolerances are stated where they are used: the metric modules are copies
-and run on the same numpy arrays (1e-6 relative); the decoder sums float32
-products in another order than XLA (1e-5 absolute on values in [-1, 1]),
-and the metrics computed from the two decodes are held to 1e-4 relative.
+Tolerances are stated where they are used: the metric modules are torch
+ports of numpy code, run on the same arrays (1e-6 relative); the decoder
+sums float32 products in another order than XLA (1e-5 absolute on values
+in [-1, 1]), and the metrics computed from the two decodes are held to
+1e-4 relative.
 """
 
 import json
@@ -152,6 +154,46 @@ def test_evaluator_reconstruction_fields_match_jax():
         assert ours[key] == pytest.approx(ref[key], rel=1e-6, abs=0), key
         assert ours[key] != 0.0, key
     assert ours["decoding_time"] == 0.25
+
+
+def test_evaluation_computes_each_spectrogram_once(monkeypatch):
+    """One evaluation of a 2 s pair (the reconstruction shorter and with
+    DC) asks for 18 spectrograms and computes 7, one FFT block each: the
+    original, the DC-removed and the raw reconstruction at 2048/512, and
+    the first two at 512/128 and 1024/256.  Signals a region needs
+    together share an FFT call ``[signals, frames, n_fft]``."""
+    a = _signal(5, seconds=2.0)
+    recon = (0.8 * a + 0.2 * _signal(6, seconds=2.0))[:-300] + 0.05
+    blocks = []
+    rfft = torch.fft.rfft
+    monkeypatch.setattr(torch.fft, "rfft", lambda x, **kw: blocks.extend(
+        [x.shape[-1]] * x.shape[0]) or rfft(x, **kw))
+    out = metrics.TokenizationEvaluator(SR)._reconstruction_metrics(
+        a, recon.astype(np.float32))
+    assert sorted(blocks) == [512, 512, 1024, 1024, 2048, 2048, 2048]
+    assert len(out) == len(RECON) and all(out[k] != 0.0 for k in RECON)
+
+
+def test_evaluator_runs_on_the_tokenizers_device():
+    """The CPU without a tokenizer, for a CPU tokenizer, and for one with
+    no device (compat mode); the upload region opens only on a card."""
+    from nat_tpu_torch.models.compat import CompatTokenizer
+    from nat_tpu_torch.utils import profiling
+
+    cpu = torch.device("cpu")
+    device_of = metrics.TokenizationEvaluator.device_of
+    assert device_of(None) == cpu
+    assert device_of(CompatTokenizer(sample_rate=SR)) == cpu
+    tok = NeuralAudioTokenizer(**CONFIG, seed=1, enable_codebook_cache=False,
+                               device="cpu")
+    assert device_of(tok) == cpu
+    a, b = _pairs()
+    profiling.reset_timings()
+    metrics.TokenizationEvaluator(SR).evaluate_tokenization(
+        a, tok, reconstructed=b)
+    assert {"nat/eval/spectral", "nat/eval/pitch", "nat/eval/rhythm",
+            "nat/eval/timbral"} <= set(profiling.stage_timings)
+    assert "nat/eval/upload" not in profiling.stage_timings
 
 
 # -- the decoder ---------------------------------------------------------------

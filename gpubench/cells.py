@@ -4,9 +4,14 @@ and its per-layer metrics' readers, each a file of its own.
 ``BENCHMARK.json`` (at the root of the checkout) lists the cells and the
 metrics; ``gpubench/workloads/<cell>.json`` holds a cell's configuration
 and traffic names, its ``why`` and the limits of its comparison;
-``gpubench/configs/<config>.json`` the sizes; ``gpubench/traffic/<mix>.json``
-the mix's driver and parameters; ``gpubench/drivers/<driver>.py`` the shape
-of the load; ``gpubench/layer_metrics/<metric>.py`` a reader with
+``gpubench/configs/<config>.json`` the sizes, its ``"semantic_arch"``
+naming its semantic trunk's kind; ``gpubench/reference/trunks/<kind>.py``
+that trunk: its input rate, frame count, parameter holder, float32 forward
+and FLOPs for one span (``reference/trunks/__init__.py`` finds it by the
+name);
+``gpubench/traffic/<mix>.json`` the mix's driver and parameters;
+``gpubench/drivers/<driver>.py`` the shape of the load;
+``gpubench/layer_metrics/<metric>.py`` a reader with
 ``read(ctx) -> float | None``.  Adding any of them adds files and entries,
 never edits one.
 """

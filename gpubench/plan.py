@@ -6,22 +6,24 @@ with its first-frame ramp) and ``nat_tpu_torch/models/tokenizer.py``
 (``_acoustic_frames``, ``_semantic_frames``, ``_target_frames``, the
 keep-mask of ``finalize_span``, ``_plan_span_groups``, ``_pad_group_rows``)
 at the program's defaults: the ramp on, timebase ``compat``, span groups of
-8 on the card.  The reference uses it to cut a file into the spans the
-program forwards; the FLOP count and the warm-up use it to know the work
-and the shapes.
+8 on the card.  The semantic frames are the configuration's trunk's
+(``reference/trunks/<kind>.py``: its input rate and frame count).  The
+reference uses it to cut a file into the spans the program forwards; the
+FLOP count and the warm-up use it to know the work and the shapes.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple, Sequence, Set, Tuple
+from typing import Dict, List, NamedTuple, Set, Tuple
 
 import numpy as np
+
+from .reference import trunks
 
 BUCKET_SECONDS = (0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 30.0)
 MAX_SINGLE_CHUNK_S = 30.0
 FIRST_SPAN_S = 4.0
-SEMANTIC_SR = 16000
 N_FFT = 2048
 
 
@@ -84,12 +86,6 @@ def resample_length(num_samples: int, sr: int, new_sr: int) -> int:
     return int(math.ceil(num_samples * up / down))
 
 
-def extractor_length(t: int, conv_layers: Sequence[Sequence[int]]) -> int:
-    for _, kernel, stride in conv_layers:
-        t = (t - kernel) // stride + 1
-    return t
-
-
 def mel_frames(num_samples: int, hop: int) -> int:
     return num_samples // hop + 1     # centered STFT
 
@@ -99,8 +95,11 @@ def acoustic_frames(num_samples: int, hop: int) -> int:
 
 
 def semantic_frames(num_samples: int, sr: int, cfg: Dict) -> int:
-    t16 = resample_length(num_samples, sr, SEMANTIC_SR)
-    return extractor_length(t16, cfg["semantic_arch_config"]["conv_layers"])
+    """The configuration's trunk's frames of a signal resampled to its
+    rate."""
+    trunk = trunks.of(cfg)
+    return trunk.frames(resample_length(num_samples, sr, trunk.rate(cfg)),
+                        cfg)
 
 
 def target_frames(num_samples: int, sr: int, cfg: Dict) -> int:

@@ -1,12 +1,14 @@
 """The plain reference of the tokenizer's forward and decoder, in float32.
 
 Plain PyTorch and NumPy: it imports nothing of the program.  It follows
-the port's modules (``nat_tpu_torch/models/{semantic,encoders,decoder}.py``,
+the port's modules (``nat_tpu_torch/models/{encoders,decoder}.py``,
 ``nat_tpu_torch/dsp/``) with the same parameter names, so one state dict
-fits both, and it works out again everything the program derives: the
-resampling filter, the STFT window, the mel matrix, the alignment.  The
-resampler is the direct sum of the polyphase formula, the alignment
-``F.interpolate``'s linear mode; neither is the program's form of them.
+fits both; the semantic trunk is its kind's file, ``trunks/<kind>.py``, by
+the configuration's ``"semantic_arch"``.  It works out again everything the program
+derives: the resampling filter, the STFT window, the mel matrix, the
+alignment.  The resampler is the direct sum of the polyphase formula, the
+alignment ``F.interpolate``'s linear mode; neither is the program's form of
+them.
 
 Precision is set by :class:`Numerics`.  The reference is IEEE float32 (TF32
 off) everywhere; the wav2vec2 trunk's GELU is the tanh form when the
@@ -29,8 +31,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import trunks
+
 NORM_EPS = 1e-6
-SEMANTIC_SR = 16000
 FP8_MAX = 448.0      # largest float8 e4m3 value
 
 
@@ -163,54 +166,6 @@ def log_mel(x: torch.Tensor, sr: int, n_fft: int, hop: int,
 # ---------------------------------------------------------------------------
 # Modules (parameter holders named as the port's; forwards are functions)
 # ---------------------------------------------------------------------------
-class FeatureExtractor(nn.Module):
-    def __init__(self, conv_layers):
-        super().__init__()
-        ins = (1, *(c[0] for c in conv_layers[:-1]))
-        self.convs = nn.ModuleList(
-            nn.Conv1d(i, c[0], c[1], stride=c[2], bias=False)
-            for i, c in zip(ins, conv_layers))
-        self.group_norm = nn.GroupNorm(conv_layers[0][0], conv_layers[0][0],
-                                       eps=NORM_EPS)
-
-
-class Layer(nn.Module):
-    def __init__(self, hidden, ffn_dim):
-        super().__init__()
-        self.query = nn.Linear(hidden, hidden)
-        self.key = nn.Linear(hidden, hidden)
-        self.value = nn.Linear(hidden, hidden)
-        self.out = nn.Linear(hidden, hidden)
-        self.layer_norm = nn.LayerNorm(hidden, eps=NORM_EPS)
-        self.fc1 = nn.Linear(hidden, ffn_dim)
-        self.fc2 = nn.Linear(ffn_dim, hidden)
-        self.final_layer_norm = nn.LayerNorm(hidden, eps=NORM_EPS)
-
-
-class Wav2Vec2(nn.Module):
-    def __init__(self, a: Dict):
-        super().__init__()
-        h = a["hidden"]
-        feat = a["conv_layers"][-1][0]
-        self.feature_extractor = FeatureExtractor(a["conv_layers"])
-        self.fp_layer_norm = nn.LayerNorm(feat, eps=NORM_EPS)
-        self.fp_projection = nn.Linear(feat, h)
-        self.pos_conv = nn.Conv1d(h, h, a["pos_conv_kernel"],
-                                  groups=a["pos_conv_groups"])
-        self.encoder_layer_norm = nn.LayerNorm(h, eps=NORM_EPS)
-        self.layers = nn.ModuleList(Layer(h, a["ffn_dim"])
-                                    for _ in range(a["num_layers"]))
-        self.num_heads = a["num_heads"]
-        self.conv_layers = [tuple(c) for c in a["conv_layers"]]
-
-
-class SemanticEncoder(nn.Module):
-    def __init__(self, output_dim: int, a: Dict):
-        super().__init__()
-        self.wav2vec2 = Wav2Vec2(a)
-        self.projection = nn.Linear(a["hidden"], output_dim)
-
-
 class ConvNorm2d(nn.Module):
     def __init__(self, cin, cout, stride):
         super().__init__()
@@ -265,8 +220,7 @@ def build(cfg: Dict, reconstruct: bool) -> Dict[str, nn.Module]:
         mods = {
             "mel_encoder": MelEncoder(cfg["acoustic_dim"], cfg["n_mels"],
                                       cfg["hop_length"], cfg["sample_rate"]),
-            "semantic_encoder": SemanticEncoder(cfg["semantic_dim"],
-                                                cfg["semantic_arch_config"]),
+            "semantic_encoder": trunks.of(cfg).holder(cfg),
             "temporal_semantic": Temporal(cfg["semantic_dim"]),
             "temporal_acoustic": Temporal(cfg["acoustic_dim"]),
         }
@@ -279,47 +233,6 @@ def build(cfg: Dict, reconstruct: bool) -> Dict[str, nn.Module]:
 # ---------------------------------------------------------------------------
 # Forwards
 # ---------------------------------------------------------------------------
-def trunk(m: SemanticEncoder, wave16: torch.Tensor, ops: Ops) -> torch.Tensor:
-    """``[B, S16]`` → ``[B, T', D]``."""
-    w = m.wav2vec2
-    h = wave16[:, None]
-    for i, conv in enumerate(w.feature_extractor.convs):
-        h = ops.conv1d(h, conv, stride=conv.stride)
-        if i == 0:
-            gn = w.feature_extractor.group_norm
-            h = F.group_norm(h, gn.num_groups, gn.weight, gn.bias, NORM_EPS)
-        h = ops.trunk_gelu(h)
-    feats = h.transpose(1, 2)
-    ln = w.fp_layer_norm
-    h = ops.linear(F.layer_norm(feats, ln.normalized_shape, ln.weight,
-                                ln.bias, NORM_EPS), w.fp_projection)
-    t = h.shape[1]
-    k = w.pos_conv.kernel_size[0]
-    pos = ops.conv1d(h.transpose(1, 2), w.pos_conv, padding=k // 2,
-                     groups=w.pos_conv.groups)[:, :, :t].transpose(1, 2)
-    ln = w.encoder_layer_norm
-    h = F.layer_norm(h + ops.trunk_gelu(pos), ln.normalized_shape, ln.weight,
-                     ln.bias, NORM_EPS)
-    b = h.shape[0]
-    for layer in w.layers:
-        def heads(proj):
-            return ops.linear(h, proj).reshape(b, t, w.num_heads,
-                                               -1).transpose(1, 2)
-        q, kk, v = heads(layer.query), heads(layer.key), heads(layer.value)
-        scores = (ops.q(q) @ ops.q(kk).transpose(-1, -2)
-                  / math.sqrt(q.shape[-1]))
-        attn = ops.q(torch.softmax(scores, dim=-1)) @ ops.q(v)
-        attn = ops.linear(attn.transpose(1, 2).reshape(b, t, -1), layer.out)
-        ln = layer.layer_norm
-        h = F.layer_norm(h + attn, ln.normalized_shape, ln.weight, ln.bias,
-                         NORM_EPS)
-        ffn = ops.linear(ops.trunk_gelu(ops.linear(h, layer.fc1)), layer.fc2)
-        ln = layer.final_layer_norm
-        h = F.layer_norm(h + ffn, ln.normalized_shape, ln.weight, ln.bias,
-                         NORM_EPS)
-    return ops.linear(h, m.projection)
-
-
 def _block(x, blk, ops: Ops):
     """conv (SAME) → GroupNorm → tanh-GELU, 1-D or 2-D."""
     if isinstance(blk, ConvNorm2d):
@@ -359,13 +272,17 @@ def temporal(m: Temporal, x: torch.Tensor, ops: Ops) -> torch.Tensor:
     return ops.conv1d(torch.cat(parts, dim=1), m.fuse).transpose(1, 2)
 
 
-def span_features(mods: Dict[str, nn.Module], wave: torch.Tensor, sr: int,
+def span_features(mods: Dict[str, nn.Module], cfg: Dict, wave: torch.Tensor,
                   t_target: int, ops: Ops):
-    """Both streams of a padded batch ``[B, bucket]``, aligned to
-    ``t_target``: ``([B, T, Ds], [B, T, Da])``."""
+    """Both streams of a padded batch ``[B, bucket]`` at the configuration's
+    rate, aligned to ``t_target``: ``([B, T, Ds], [B, T, Da])``.  The
+    semantic stream resamples to its trunk's rate and runs the trunk's
+    forward."""
+    sr = cfg["sample_rate"]
+    trunk = trunks.of(cfg)
+    wave_in = resample(wave, sr, trunk.rate(cfg))
     sem = temporal(mods["temporal_semantic"],
-                   trunk(mods["semantic_encoder"],
-                         resample(wave, sr, SEMANTIC_SR), ops), ops)
+                   trunk.forward(mods["semantic_encoder"], wave_in, ops), ops)
     acc = temporal(mods["temporal_acoustic"],
                    mel_stack(mods["mel_encoder"], wave, sr, ops), ops)
 

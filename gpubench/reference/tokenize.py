@@ -88,8 +88,8 @@ class Reference:
             wave = torch.from_numpy(chunk)[None].to(self.device)
             t_target = plan.target_frames(span.bucket, self.sr, self.cfg)
             with model.tf32(False):
-                s, a = model.span_features(self.mods, wave, self.sr, t_target,
-                                           self.ops)
+                s, a = model.span_features(self.mods, self.cfg, wave,
+                                           t_target, self.ops)
             keep = torch.from_numpy(plan.kept(span, self.sr,
                                               self.cfg)).to(self.device)
             sem.append(s[0, keep])

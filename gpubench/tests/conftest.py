@@ -51,6 +51,32 @@ def add_cell(root: Path, name: str, config: str, mix: str, why: str,
     (root / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
 
 
+def trunk_files(trunks_dir: Path) -> list:
+    """The names of the ``*.py`` files under ``trunks_dir``, each checked
+    to import only the standard library, numpy and torch and, of the
+    reference, ``..model``: nothing of the program, and no trunk file
+    another's."""
+    import ast
+
+    allowed = set(sys.stdlib_module_names) | {"numpy", "torch"}
+    paths = sorted(trunks_dir.glob("*.py"))
+    for path in paths:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.level:
+                assert (node.level, node.module) == (2, "model"), (
+                    path.name, node.level, node.module)
+                continue
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] in allowed, (path.name, name)
+    return [p.name for p in paths]
+
+
 def make_root(base: Path) -> Path:
     root = base / "checkout"
     shutil.copytree(REPO / "gpubench", root / "gpubench",
